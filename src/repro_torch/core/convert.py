@@ -1,0 +1,38 @@
+"""Carry a reference state or problem across to the port.
+
+The reference's engine states are NamedTuples of arrays; ``np.asarray`` of
+each field is the common currency the parity tests feed both packages.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.convex import LinearRegression
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def state_from_numpy(state_cls, arrays, device: DeviceLike = None):
+    """The port's `state_cls` (FlatLEADState, SimpleState) on `device` from
+    the reference's state: a NamedTuple, a mapping of field name to array,
+    or a sequence in field order.  Float fields become f32, the counter k
+    int64; every field is copied."""
+    dev = resolve_device(device)
+    if hasattr(arrays, "_asdict"):
+        arrays = arrays._asdict()
+    if not isinstance(arrays, Mapping):
+        arrays = dict(zip(state_cls._fields, arrays))
+    fields = {}
+    for name in state_cls._fields:
+        dtype = torch.int64 if name == "k" else torch.float32
+        fields[name] = torch.tensor(np.asarray(arrays[name]), dtype=dtype,
+                                    device=dev)
+    return state_cls(**fields)
+
+
+def problem_from_numpy(A, b, lam: float,
+                       device: DeviceLike = None) -> LinearRegression:
+    """The port's LinearRegression with the reference's data."""
+    return LinearRegression.from_arrays(A, b, lam, device=device)

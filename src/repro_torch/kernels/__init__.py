@@ -1,0 +1,14 @@
+"""Hopper kernels of the port and their plain PyTorch versions.
+
+    ref.py          plain versions (the math of src/repro/kernels/ref.py)
+    dispatch.py     CPU tensor -> plain version, CUDA tensor -> kernel
+    cuda_lib.py     nvcc build of csrc/lead_kernels.cu, ctypes loading,
+                    launch counts
+    quantize.py     decode (K2)
+    lead_update.py  lead_diff_encode (K1), lead_update (K3)
+    ops.py          any-shape wrappers: blocking, tile padding, dither
+
+Layout contract (the reference's): every kernel works row-wise on f32
+(rows, block=512) planes, rows = n_agents * nb, and zero rows are a fixed
+point of every kernel.
+"""
