@@ -3,25 +3,40 @@
 
     PYTHONPATH=src python3 chip_smoke.py
 
-Builds the kernels from src/repro_torch/csrc, then runs four phases, each
+Builds the kernels from src/repro_torch/csrc, then runs six phases, each
 printing one JSON line; a failed check exits nonzero.
 
   env            card name and power limit, torch and CUDA versions, build time
   kernels        K1 lead_diff_encode, K2 quantize decode (each at b = 2, 4, 7)
                  and K3 lead_update held bit for bit against their plain
-                 PyTorch versions at both shapes of the main path: the
+                 PyTorch versions at both shapes of LEAD's path: the
                  headline's (8 rows, d = 64 zero-padded to one block per
                  agent) and the real size's (8 agents x 65,536 rows of 512);
-                 then timed at the real size with CUDA events against their
-                 byte bounds
+                 K4 quantize encode (b = 2, 4, 7), K5 randk encode (ratio
+                 0.1, rescale on and off) and K6 mask apply likewise at both
+                 shapes of the baselines' path: Fig. 2's (8 agents x 16
+                 blocks, d = 7,840 zero-padded) and the real size's; then
+                 every kernel timed at the real size with CUDA events against
+                 its byte bound
   headline       the README's run on the card: ring-8 linear regression, LEAD
                  with the 2-bit quantizer against DGD for 300 iterations,
-                 every kernel launched once per LEAD step; plus uncompressed
+                 every LEAD kernel launched once per step; plus uncompressed
                  LEAD on the card against the same run on the CPU
-  lead_at_scale  the main path at real size: n = 8 agents, d = 2^25 f32
+  fig2           the paper's Fig. 2 on the card: ring-8 logistic regression,
+                 LEAD and the compressed baselines on the 2-bit quantizer,
+                 the exact baselines on 32-bit values, 200 iterations; the
+                 paper's ordering checked, each compressed baseline through
+                 K4 and K2 once per step, and the exact baselines held
+                 against the same runs on the CPU
+  lead_at_scale  LEAD's path at real size: n = 8 agents, d = 2^25 f32
                  parameters each, 2-bit LEAD for 20 steps through run(), then
                  a per-stage breakdown of run() itself from CUDA events at
                  its stage marks (core/stage_timer.py)
+  baselines_at_scale
+                 the baselines' path at the same size: CHOCO for 20 steps on
+                 each compressed wire - the 2-bit quantizer (K4, K2), RandK
+                 (K5) and exact TopK (K6) - with its ms/step, peak memory and
+                 stage breakdown
 
 The line before the last lists every kernel with its launches on the main
 path, its error against the plain version and its times; the last line is
@@ -44,6 +59,7 @@ ROWS = 8 * 65536            # n_agents * nb at the real size
 BLOCK = 512
 D_SCALE = 2 ** 25           # per-agent parameters at the real size
 HEADLINE_D = 64             # per-agent parameters of the README's run
+FIG2_D = 784 * 10           # Fig. 2's parameters per agent (16 blocks)
 # run()'s stage marks (core/stage_timer.py) by what each stage runs
 STAGE_NAMES = {"gradient": "gradient", "dither": "dither",
                "diff_encode": "K1_diff_encode", "decode": "K2_decode",
@@ -52,6 +68,48 @@ STAGE_NAMES = {"gradient": "gradient", "dither": "dither",
 REPS = 20
 TRACE_RTOL = 1e-5           # trajectory tolerance, as the CPU parity tests
 TRACE_FLOOR = 1e-2
+LEAD_KERNELS = ("lead_diff_encode", "quantize_decode", "lead_update")
+
+# Fig. 2: benchmarks/bench_logreg.py's hypers (eta 0.1; CHOCO gamma 0.6,
+# DeepSqueeze and QDGD gamma 0.4), plus DCD, EXTRA and D2 at eta 0.1
+FIG2_ITERS = 200
+FIG2_ETA = 0.1
+FIG2 = {"lead": {}, "choco": {"gamma": 0.6}, "deepsqueeze": {"gamma": 0.4},
+        "qdgd": {"gamma": 0.4}, "dcd": {}, "dgd": {}, "nids": {},
+        "extra": {}, "d2": {}}
+FIG2_COMPRESSED = ("choco", "deepsqueeze", "qdgd", "dcd")
+FIG2_EXACT = ("dgd", "nids", "extra", "d2")
+
+# CHOCO at scale on the objective of lead_at_scale, eta 0.01 (the mean
+# error falls 0.99^2 a step while the drift of the heterogeneous local
+# optima stays within what gossip removes); gamma per wire, chosen on the
+# CPU at d = 2^16, where the reference's CHOCO falls with the same hypers
+# (dist after 20 steps 0.69x, 0.77x and 0.82x of the first step's).
+# RandK does not rescale: CHOCO needs a contractive compressor, and
+# xhat += q with q rescaled by 1/ratio diverges at any gamma.
+CHOCO_ETA = 0.01
+CHOCO_WIRES = {   # wire: (gamma, kernels it launches, its stage names)
+    "pinf_2bit": (0.8, ("quantize_encode", "quantize_decode"),
+                  {"dither": "dither", "encode": "K4_encode",
+                   "decode": "K2_decode"}),
+    "randk_0.1": (0.2, ("randk_encode",),
+                  {"dither": "dither", "encode": "K5_randk_encode",
+                   "decode": "decode_identity"}),
+    "topk_0.01": (0.2, ("mask_apply",),
+                  {"topk_mask": "topk_mask", "encode": "K6_mask_apply",
+                   "decode": "decode_identity"}),
+}
+CHOCO_STAGES = {"gradient": "gradient", "message": "message",
+                "mix": "dense_mix", "update": "update",
+                "comp_err": "comp_err", "metrics": "metrics"}
+
+
+def choco_compressor(wire):
+    from repro_torch.core.compression import QuantizePNorm, RandK, TopK
+    return {"pinf_2bit": QuantizePNorm(bits=2),
+            "randk_0.1": RandK(ratio=0.1, rescale=False),
+            "topk_0.01": TopK(ratio=0.01)}[wire]
+
 
 # the H100 SXM's data sheet (dense): HBM bytes/s, fp32 non-tensor flop/s
 H100_SXM = ("H100 80GB HBM3", 3.35e12, 67e12)
@@ -92,6 +150,49 @@ def check(cond, msg):
 
 def max_abs(a, b):
     return float((a.double() - b.double()).abs().max())
+
+
+def expect_launches(launches, counts, what):
+    """Fail unless each kernel launched exactly counts.get(name, 0) times."""
+    want = {k: counts.get(k, 0) for k in launches}
+    check(launches == want, f"{what}: kernel launches {launches}, expected "
+          f"{want}")
+
+
+def trace_gap(a, b, what):
+    """Hold trace `a` against trace `b` by the CPU tests' trajectory bound
+    (tests/test_torch_engine.py::_trace_close): pointwise 1e-5 relative
+    wherever b is at least 1e-2 of its first value, and at every step in
+    norm space, |sqrt(a) - sqrt(b)| within 1e-5 of sqrt(b[0]).  Returns
+    the gaps of dist, consensus and loss."""
+    gap = {}
+    for f in ("dist", "consensus", "loss"):
+        x, y = getattr(a, f), getattr(b, f)
+        keep = y >= TRACE_FLOOR * y[0]
+        rel = float(np.max(np.abs(x[keep] - y[keep]) / y[keep]))
+        norm = float(np.max(np.abs(np.sqrt(x) - np.sqrt(y))) / np.sqrt(y[0]))
+        gap[f] = {"pointwise_rel": rel, "steps": int(keep.sum()),
+                  "norm_space": norm}
+        check(rel <= TRACE_RTOL and norm <= TRACE_RTOL,
+              f"{what} {f} cuda vs cpu {gap[f]}")
+    return gap
+
+
+def stage_breakdown(run_fn, dev, names, what):
+    """Median ms per stage of run_fn() (6 steps) under core/stage_timer.py,
+    step 0 dropped as warm-up; `names` maps each mark to what it runs and
+    must cover every stage."""
+    from repro_torch.core.stage_timer import StageTimer
+
+    with StageTimer(dev) as timer:
+        run_fn()
+    stages = timer.stages()
+    first = [name for name, _ in stages].index("metrics") + 1
+    acc = {}
+    for name, ms in stages[first:]:
+        acc.setdefault(names.get(name, name), []).append(ms)
+    check(set(acc) == set(names.values()), f"{what}: stages {sorted(acc)}")
+    return {s: statistics.median(v) for s, v in acc.items()}
 
 
 class Quadratic:
@@ -177,16 +278,95 @@ def hold_against_plain(dev, d):
     return err, rows
 
 
+def hold_wire_against_plain(dev, d):
+    """K4 at b = 2, 4 and 7, K5 (ratio 0.1, rescale on and off) and K6
+    against their plain versions on the planes that the baselines' wire
+    gives them at per-agent dimension d: a message of n = 8 agents
+    blockified (zero past d) with one zero row; the engine's dither plane
+    (K4) and its logical part padded with 1.0 past d (K5, as RandK pads
+    it); the exact-k mask of TopK(0.01) (K6).  Every output must be
+    bit-identical, and the zero row and the padding must stay zero.
+    Returns each kernel's max |kernel - plain| and the rows it was held
+    at."""
+    from repro_torch.core import topology
+    from repro_torch.core.compression import QuantizePNorm, TopK, _rows_to_flat
+    from repro_torch.core.engines import engine_for
+    from repro_torch.kernels import quantize as q
+    from repro_torch.kernels import sparsify as sp
+
+    n = 8
+    eng = engine_for(topology.ring(n), QuantizePNorm(bits=2), d,
+                     algorithm="choco", device=dev)
+    gen = torch.Generator(dev).manual_seed(d + 1)
+    buf = eng.blockify(torch.randn((n, d), generator=gen, device=dev))
+    x = eng._rows(buf)
+    x[0] = 0.0                                  # a zero row stays zero
+    k0 = torch.zeros((), dtype=torch.int64, device=dev)
+    plane = eng._dither_plane(12345, k0)
+    u = eng._rows(plane)
+    u_keep = eng._rows(_rows_to_flat(eng.unblockify(plane), buf, value=1.0))
+    mask = eng._rows(_rows_to_flat(
+        TopK(ratio=0.01)._mask_rows(eng.unblockify(buf)).to(torch.float32),
+        buf))
+    del plane
+    rows = x.shape[0]
+    where = f"rows={rows} d={d}"
+    pad = eng.nb * BLOCK - d
+
+    def padded(t):                              # agent-major pad columns
+        return t.reshape(n, -1)[:, d:] if pad else t[:0]
+
+    err = {"quantize_encode": 0.0, "randk_encode": 0.0, "mask_apply": 0.0}
+    for bits in (2, 4, 7):
+        c1, s1 = q.encode(x, u, bits=bits)
+        c2, s2 = q.encode_plain(x, u, bits)
+        n_code, n_scale = int((c1 != c2).sum()), int((s1 != s2).sum())
+        check(n_code == 0 and n_scale == 0,
+              f"K4 {where} b={bits}: {n_code} codes, {n_scale} scales differ")
+        check(float(s1[0]) == 0.0 and not bool(c1[0].any())
+              and not bool(padded(c1).any()),
+              f"K4 {where} b={bits}: the zero row or the padding is not zero")
+        err["quantize_encode"] = max(err["quantize_encode"], max_abs(c1, c2),
+                                     max_abs(s1, s2))
+        del c1, c2, s1, s2
+    for rescale in (True, False):
+        o1 = sp.randk_encode(x, u_keep, ratio=0.1, rescale=rescale)
+        o2 = sp.randk_encode_plain(x, u_keep, 0.1,
+                                   (1.0 / 0.1) if rescale else 1.0)
+        e = max_abs(o1, o2)
+        check(e == 0.0 and torch.equal(o1, o2),
+              f"K5 {where} rescale={rescale}: max |kernel - plain| = {e}")
+        check(not bool(o1[0].any()) and not bool(padded(o1).any()),
+              f"K5 {where}: the zero row or the padding is not zero")
+        err["randk_encode"] = max(err["randk_encode"], e)
+        del o1, o2
+    o1, o2 = sp.mask_apply(x, mask), sp.mask_apply_plain(x, mask)
+    e = max_abs(o1, o2)
+    check(e == 0.0 and torch.equal(o1, o2),
+          f"K6 {where}: max |kernel - plain| = {e}")
+    check(not bool(padded(o1).any()), f"K6 {where}: the padding is not zero")
+    err["mask_apply"] = e
+    return err, rows
+
+
 def phase_kernels(dev, bw, flops):
     from repro_torch.kernels import lead_update as lu
     from repro_torch.kernels import quantize as q
+    from repro_torch.kernels import sparsify as sp
 
-    # bit-identity at both shapes of the main path: the headline's (d = 64,
-    # one zero-padded block per agent, 8 rows) and the real size's
-    held = [hold_against_plain(dev, d) for d in (HEADLINE_D, D_SCALE)]
-    torch.cuda.empty_cache()
-    err = {k: max(e[k] for e, _ in held) for k in held[0][0]}
-    check(held[1][1] == ROWS, f"real-size rows {held[1][1]} != {ROWS}")
+    # bit-identity at both shapes of each path: LEAD's (the headline's d =
+    # 64, one zero-padded block per agent, 8 rows) and the baselines' (Fig.
+    # 2's d = 7,840, 16 blocks per agent, 128 rows), and the real size's
+    held = []
+    for hold, d_small in ((hold_against_plain, HEADLINE_D),
+                          (hold_wire_against_plain, FIG2_D)):
+        for d in (d_small, D_SCALE):
+            held.append(hold(dev, d))
+            torch.cuda.empty_cache()
+    err = {k: max(e[k] for e, _ in held if k in e)
+           for e, _ in held for k in e}
+    check(held[1][1] == ROWS and held[3][1] == ROWS,
+          f"real-size rows {held[1][1]}, {held[3][1]} != {ROWS}")
 
     # device time at the real size
     n = ROWS * BLOCK
@@ -205,7 +385,19 @@ def phase_kernels(dev, bw, flops):
     hyp = tuple(torch.full((), v, device=dev) for v in (0.5, 1.0, 0.5))
     k3_ms = time_ms(lambda: lu.lead_update(*planes, *hyp))
     k3_plain = time_ms(lambda: lu.lead_update_plain(*planes, *hyp))
-    del planes, x, g, d, h, hw, qh, wqh
+    del planes, g, d, h, hw, qh, wqh
+    torch.cuda.empty_cache()
+    u = torch.rand(ROWS, BLOCK, generator=gen, device=dev)
+    k4_ms = time_ms(lambda: q.encode(x, u, bits=2))
+    k4_plain = time_ms(lambda: q.encode_plain(x, u, 2))
+    k5_ms = time_ms(lambda: sp.randk_encode(x, u, ratio=0.1))
+    k5_plain = time_ms(lambda: sp.randk_encode_plain(x, u, 0.1, 1.0 / 0.1))
+    n_kept = int((u < 0.1).sum())
+    mask = (u < 0.01).to(torch.float32)
+    k6_ms = time_ms(lambda: sp.mask_apply(x, mask))
+    k6_plain = time_ms(lambda: sp.mask_apply_plain(x, mask))
+    k6_lib = time_ms(lambda: torch.mul(x, mask))
+    del x, u, mask
     torch.cuda.empty_cache()
 
     # least device time for the same work: each input read once, each output
@@ -222,20 +414,36 @@ def phase_kernels(dev, bw, flops):
         "lead_update": dict(
             replaces="src/repro/kernels/lead_update.py:49",
             bytes=n * 44 + 12, ops=n * 15, ms=k3_ms, plain_ms=k3_plain),
+        "quantize_encode": dict(
+            replaces="src/repro/kernels/quantize.py:52",
+            bytes=n * 9 + ROWS * 4, ops=n * 8, ms=k4_ms, plain_ms=k4_plain),
+        "randk_encode": dict(
+            replaces="src/repro/kernels/sparsify.py:49",
+            bytes=n * 12, ops=n + n_kept, ms=k5_ms, plain_ms=k5_plain),
+        "mask_apply": dict(
+            replaces="src/repro/kernels/sparsify.py:76",
+            bytes=n * 12, ops=n, ms=k6_ms, plain_ms=k6_plain,
+            library_ms=k6_lib, library="torch.mul(x, mask)"),
     }
+    sources = {"lead_diff_encode": "lead_kernels.cu",
+               "quantize_decode": "lead_kernels.cu",
+               "lead_update": "lead_kernels.cu"}
     rows = []
     for name, s in specs.items():
         byte_ms = s["bytes"] / bw * 1e3
         op_ms = s["ops"] / flops * 1e3
         rows.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/lead_kernels.cu",
+            "source": "src/repro_torch/csrc/"
+                      + sources.get(name, "wire_kernels.cu"),
             "replaces": s["replaces"], "max_abs_err": err[name],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "library_ms": None, "bytes": s["bytes"],
+            "library_ms": s.get("library_ms"), "bytes": s["bytes"],
             "achieved_GBps": s["bytes"] / (s["ms"] * 1e-3) / 1e9})
+        if "library" in s:
+            rows[-1]["library"] = s["library"]
     emit({"phase": "kernels", "held_at_rows": [r for _, r in held],
           "timed_rows": ROWS, "block": BLOCK, "hbm_Bps": bw, "kernels": rows})
     return rows
@@ -261,8 +469,7 @@ def phase_headline(dev):
     cuda_lib.reset_launch_counts()
     tr = run(lead, prob, x_star, iters=300)
     launches = cuda_lib.launch_counts()
-    check(all(c == 300 for c in launches.values()),
-          f"headline: kernel launches {launches}, expected 300 each")
+    expect_launches(launches, dict.fromkeys(LEAD_KERNELS, 300), "headline")
     dgd = engine_for(topo, None, prob.d, algorithm="dgd", eta=eta, device=dev)
     tr_dgd = run(dgd, prob, x_star, iters=300)
     for t in (tr, tr_dgd):
@@ -279,20 +486,9 @@ def phase_headline(dev):
     runs = [run(LEADSim(topology=topo, eta=eta, device=p.A.device), p,
                 x_star.to(p.A.device), iters=100)
             for p in (prob, cpu_prob)]
-    # the CPU tests' trajectory bound (tests/test_torch_engine.py::
-    # _trace_close): pointwise 1e-5 relative wherever the CPU trace is at
-    # least 1e-2 of its first value, and at every step in norm space,
-    # |sqrt(cuda) - sqrt(cpu)| within 1e-5 of sqrt(cpu[0]); dist falls ~9
-    # decades in 100 steps, below which f32 rounding of the iterates rules
-    gap = {}
-    for f, a, b in zip(("dist", "consensus", "loss"), runs[0], runs[1]):
-        keep = b >= TRACE_FLOOR * b[0]
-        rel = float(np.max(np.abs(a[keep] - b[keep]) / b[keep]))
-        norm = float(np.max(np.abs(np.sqrt(a) - np.sqrt(b))) / np.sqrt(b[0]))
-        gap[f] = {"pointwise_rel": rel, "steps": int(keep.sum()),
-                  "norm_space": norm}
-        check(rel <= TRACE_RTOL and norm <= TRACE_RTOL,
-              f"headline: uncompressed LEAD {f} cuda vs cpu {gap[f]}")
+    # dist falls ~9 decades in 100 steps, below which f32 rounding of the
+    # iterates rules: hence trace_gap's norm-space bound
+    gap = trace_gap(runs[0], runs[1], "headline: uncompressed LEAD")
     emit({"phase": "headline", "lead_dist": tr.dist[-1],
           "dgd_dist": tr_dgd.dist[-1], "ratio": ratio,
           "bits_saving": tr_dgd.bits_per_agent[-1] / tr.bits_per_agent[-1],
@@ -305,7 +501,6 @@ def phase_lead_at_scale(dev):
     from repro_torch.core import topology
     from repro_torch.core.compression import QuantizePNorm
     from repro_torch.core.simulator import LEADSim, run
-    from repro_torch.core.stage_timer import StageTimer
     from repro_torch.kernels import cuda_lib
 
     n, d, iters = 8, D_SCALE, 20
@@ -321,8 +516,8 @@ def phase_lead_at_scale(dev):
     wall = time.perf_counter() - t0
     launches = cuda_lib.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(all(c == iters for c in launches.values()),
-          f"lead_at_scale: kernel launches {launches}, expected {iters} each")
+    expect_launches(launches, dict.fromkeys(LEAD_KERNELS, iters),
+                    "lead_at_scale")
     check(all(np.isfinite(a).all() for a in tr), "lead_at_scale: non-finite")
     check(tr.dist[-1] < 1e-2 * tr.dist[0],
           f"lead_at_scale: dist {tr.dist[0]} -> {tr.dist[-1]}")
@@ -331,17 +526,10 @@ def phase_lead_at_scale(dev):
 
     # per-stage device time of run() itself: StageTimer records a CUDA event
     # at each stage mark of the step's own code (after the counted run, so
-    # its launches are not counted); step 0 warms up and is dropped
-    with StageTimer(dev) as timer:
-        run(lead, prob, prob.x_star, iters=6)
-    stages = timer.stages()
-    first = [name for name, _ in stages].index("metrics") + 1
-    acc = {}
-    for name, ms in stages[first:]:
-        acc.setdefault(STAGE_NAMES.get(name, name), []).append(ms)
-    check(set(acc) == set(STAGE_NAMES.values()),
-          f"lead_at_scale: stages {sorted(acc)}")
-    breakdown = {s: statistics.median(v) for s, v in acc.items()}
+    # its launches are not counted)
+    breakdown = stage_breakdown(
+        lambda: run(lead, prob, prob.x_star, iters=6), dev, STAGE_NAMES,
+        "lead_at_scale")
     emit({"phase": "lead_at_scale", "n": n, "d": d, "iters": iters,
           "ms_per_step": wall * 1e3 / iters, "breakdown_ms": breakdown,
           "breakdown_total_ms": sum(breakdown.values()),
@@ -349,6 +537,140 @@ def phase_lead_at_scale(dev):
           "dist": [tr.dist[0], tr.dist[-1]],
           "consensus": [tr.consensus[0], tr.consensus[-1]],
           "loss": [tr.loss[0], tr.loss[-1]], "comp_err_last": tr.comp_err[-1]})
+    return launches
+
+
+def phase_fig2(dev):
+    """The paper's Fig. 2 on the card (the Motivation table of the port's
+    second slice): the port's own logistic-regression problem, x* by 800
+    steps of gradient descent, 200 iterations of each algorithm through
+    run()."""
+    from repro_torch.core import topology
+    from repro_torch.core.compression import QuantizePNorm
+    from repro_torch.core.convex import LogisticRegression
+    from repro_torch.core.engines import engine_for, is_exact
+    from repro_torch.core.simulator import LEADSim, run
+    from repro_torch.kernels import cuda_lib
+
+    prob = LogisticRegression.generate(torch.Generator(dev).manual_seed(1),
+                                       n_agents=8, m_per_agent=256, d=784,
+                                       n_classes=10, heterogeneous=True,
+                                       device=dev)
+    check(prob.d == FIG2_D, f"fig2: d = {prob.d}")
+    x_star = prob.solve_x_star(iters=800)
+    topo, q2 = topology.ring(8), QuantizePNorm(bits=2)
+
+    def algo(name, device):
+        if name == "lead":
+            return LEADSim(topology=topo, compressor=q2, eta=FIG2_ETA,
+                           device=device)
+        return engine_for(topo, None if is_exact(name) else q2, prob.d,
+                          algorithm=name, eta=FIG2_ETA, device=device,
+                          **FIG2[name])
+
+    tr, launches = {}, {}
+    for name in FIG2:
+        cuda_lib.reset_launch_counts()
+        tr[name] = run(algo(name, dev), prob, x_star, iters=FIG2_ITERS)
+        launches[name] = cuda_lib.launch_counts()
+        check(all(np.isfinite(a).all() for a in tr[name]),
+              f"fig2: {name} non-finite")
+    expect_launches(launches["lead"], dict.fromkeys(LEAD_KERNELS, FIG2_ITERS),
+                    "fig2 lead")
+    for name in FIG2_COMPRESSED:
+        expect_launches(launches[name], {"quantize_encode": FIG2_ITERS,
+                                         "quantize_decode": FIG2_ITERS},
+                        f"fig2 {name}")
+    for name in FIG2_EXACT:
+        expect_launches(launches[name], {}, f"fig2 {name}")
+
+    final = {k: {"dist": t.dist[-1], "consensus": t.consensus[-1],
+                 "bits_per_agent": t.bits_per_agent[-1]}
+             for k, t in tr.items()}
+    lead = final["lead"]
+    check(lead["dist"] <= 1.01 * final["nids"]["dist"],
+          f"fig2: LEAD dist {lead['dist']} > 1.01 x NIDS's "
+          f"{final['nids']['dist']}")
+    for name in FIG2_COMPRESSED + ("dgd",):
+        check(lead["dist"] < final[name]["dist"],
+              f"fig2: LEAD dist {lead['dist']} not below {name}'s "
+              f"{final[name]['dist']}")
+    for name in FIG2_COMPRESSED:
+        check(10 * lead["consensus"] <= final[name]["consensus"],
+              f"fig2: LEAD consensus {lead['consensus']} not 10x below "
+              f"{name}'s {final[name]['consensus']}")
+    d = prob.d
+    analytic = 32 * d / (3 * d + 32 * -(-d // BLOCK))
+    ratio = final["dgd"]["bits_per_agent"] / lead["bits_per_agent"]
+    check(abs(ratio / analytic - 1) < 1e-6,
+          f"fig2: bit ratio {ratio}, analytic {analytic}")
+
+    # the exact baselines on the card against the same runs on the CPU
+    # (plain torch), which the CPU tests hold against the JAX reference
+    cpu_prob = LogisticRegression.from_arrays(prob.feats, prob.labels,
+                                              prob.n_classes, prob.lam,
+                                              device="cpu")
+    gaps = {name: trace_gap(tr[name], run(algo(name, "cpu"), cpu_prob,
+                                          x_star.cpu(), iters=FIG2_ITERS),
+                            f"fig2: {name}")
+            for name in FIG2_EXACT}
+    emit({"phase": "fig2", "n": prob.n, "d": d, "iters": FIG2_ITERS,
+          "eta": FIG2_ETA, "dist0": {k: t.dist[0] for k, t in tr.items()},
+          "final": final, "bit_ratio": ratio,
+          "lead_consensus_below": {k: final[k]["consensus"]
+                                   / lead["consensus"]
+                                   for k in FIG2_COMPRESSED},
+          "launches": {k: {n: c for n, c in v.items() if c}
+                       for k, v in launches.items()},
+          "exact_cuda_vs_cpu": gaps})
+    return launches
+
+
+def phase_baselines_at_scale(dev):
+    """CHOCO on each compressed wire at the real size: n = 8 ring, d = 2^25
+    per agent, the objective of lead_at_scale, 20 steps through run()."""
+    from repro_torch.core import topology
+    from repro_torch.core.engines import engine_for
+    from repro_torch.core.simulator import run
+    from repro_torch.kernels import cuda_lib
+
+    n, d, iters = 8, D_SCALE, 20
+    prob = Quadratic(torch.Generator(dev).manual_seed(0), n, d, dev)
+    launches = {}
+    for wire, (gamma, kernels, names) in CHOCO_WIRES.items():
+        eng = engine_for(topology.ring(n), choco_compressor(wire), d,
+                         algorithm="choco", eta=CHOCO_ETA, gamma=gamma,
+                         device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = run(eng, prob, prob.x_star, iters=iters)   # ends in one .cpu()
+        wall = time.perf_counter() - t0
+        launches[wire] = cuda_lib.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        what = f"baselines_at_scale {wire}"
+        expect_launches(launches[wire], dict.fromkeys(kernels, iters), what)
+        check(all(np.isfinite(a).all() for a in tr), f"{what}: non-finite")
+        check(tr.dist[-1] < tr.dist[0],
+              f"{what}: dist {tr.dist[0]} -> {tr.dist[-1]}")
+        breakdown = stage_breakdown(
+            lambda: run(eng, prob, prob.x_star, iters=6), dev,
+            {**CHOCO_STAGES, **names}, what)
+        emit({"phase": "baselines_at_scale", "wire": wire,
+              "compressor": repr(eng.compressor), "algorithm": "choco",
+              "eta": CHOCO_ETA, "gamma": gamma, "n": n, "d": d,
+              "iters": iters, "ms_per_step": wall * 1e3 / iters,
+              "breakdown_ms": breakdown,
+              "breakdown_total_ms": sum(breakdown.values()),
+              "max_memory_allocated_GB": peak / 1e9,
+              "launches": launches[wire],
+              "dist": [tr.dist[0], tr.dist[-1]],
+              "consensus": [tr.consensus[0], tr.consensus[-1]],
+              "bits_per_agent_per_step": tr.bits_per_agent[-1] / iters,
+              "comp_err_last": tr.comp_err[-1]})
+        del eng, tr
     return launches
 
 
@@ -377,13 +699,25 @@ def main():
 
     rows = phase_kernels(dev, bw, flops)
     headline = phase_headline(dev)
-    at_scale = phase_lead_at_scale(dev)
+    fig2 = phase_fig2(dev)
+    lead_at_scale = phase_lead_at_scale(dev)
+    baselines = phase_baselines_at_scale(dev)
+    # launches: each kernel's count on its path at the real size (LEAD's for
+    # K1-K3, CHOCO's wire for K4-K6), each path run with the counts at 0
+    at_scale = {"quantize_encode": baselines["pinf_2bit"],
+                "randk_encode": baselines["randk_0.1"],
+                "mask_apply": baselines["topk_0.01"]}
     for r in rows:
-        r["launches"] = at_scale[r["name"]]
-        r["headline_launches"] = headline[r["name"]]
+        k = r["name"]
+        r["launches"] = at_scale.get(k, lead_at_scale)[k]
+        r["launches_by_path"] = {
+            "lead_at_scale": lead_at_scale[k], "headline": headline[k],
+            "fig2": sum(v[k] for v in fig2.values()),
+            **{f"baselines_at_scale/{w}": v[k] for w, v in baselines.items()}}
     print(smi, flush=True)
     emit({"kernels": rows})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
 

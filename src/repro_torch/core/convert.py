@@ -10,15 +10,16 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.convex import LinearRegression
+from repro_torch.core.convex import LinearRegression, LogisticRegression
 from repro_torch.device import DeviceLike, resolve_device
 
 
 def state_from_numpy(state_cls, arrays, device: DeviceLike = None):
-    """The port's `state_cls` (FlatLEADState, SimpleState) on `device` from
-    the reference's state: a NamedTuple, a mapping of field name to array,
-    or a sequence in field order.  Float fields become f32, the counter k
-    int64; every field is copied."""
+    """The port's `state_cls` (FlatLEADState or a baseline's state:
+    SimpleState, HatState, ErrorState, DualState, PrevGradState,
+    ExtraState) on `device` from the reference's state: a NamedTuple, a
+    mapping of field name to array, or a sequence in field order.  Float
+    fields become f32, the counter k int64; every field is copied."""
     dev = resolve_device(device)
     if hasattr(arrays, "_asdict"):
         arrays = arrays._asdict()
@@ -36,3 +37,10 @@ def problem_from_numpy(A, b, lam: float,
                        device: DeviceLike = None) -> LinearRegression:
     """The port's LinearRegression with the reference's data."""
     return LinearRegression.from_arrays(A, b, lam, device=device)
+
+
+def logreg_from_numpy(feats, labels, n_classes: int, lam: float,
+                      device: DeviceLike = None) -> LogisticRegression:
+    """The port's LogisticRegression with the reference's data."""
+    return LogisticRegression.from_arrays(feats, labels, n_classes, lam,
+                                          device=device)

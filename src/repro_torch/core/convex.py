@@ -2,15 +2,18 @@
 
 * Linear regression:  f_i(x) = ||A_i x - b_i||^2 + lambda ||x||^2
   (paper: A_i in R^{200x200}, b_i = A_i x' + noise, lambda = 0.1).
+* Multinomial logistic regression on a Gaussian-mixture surrogate for
+  MNIST (paper Figs. 2-3: d = 784 features, 10 classes, 8 agents x 256
+  samples, heterogeneous = sorted by label before partitioning).
 
 Objectives expose:
     full_grad(X)            (n, d)->(n, d)   per-agent full-batch gradients
     loss(X)                 mean of local losses at the agent-local iterates
-    x_star                  the global optimizer (closed form)
-    mu_L                    strong-convexity / smoothness constants
+    x_star / solve_x_star   the global optimizer (closed form / by descent)
+    mu_L                    strong-convexity / smoothness constants (linreg)
 
-All arithmetic is float32, as in the reference.  ``LogisticRegression`` and
-the minibatch oracle are not ported yet.
+All arithmetic is float32, as in the reference.  The minibatch oracle
+(``minibatch_grad``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -95,6 +98,105 @@ class LinearRegression:
             2.0 * self.lam * eye[None]
         ev = torch.linalg.eigvalsh(H)                   # (n, d)
         return float(torch.min(ev[:, 0])), float(torch.max(ev[:, -1]))
+
+
+@dataclasses.dataclass(frozen=True)
+class LogisticRegression:
+    """Multinomial logistic regression, one data shard per agent:
+
+        f_i(w) = -mean_j log softmax(feats_ij @ w)[labels_ij]
+                 + lam/2 ||w||^2,    w: (d_feat, n_classes) flattened.
+    """
+    feats: torch.Tensor    # (n, m, d_feat) f32
+    labels: torch.Tensor   # (n, m) int64
+    n_classes: int
+    lam: float
+
+    @staticmethod
+    def generate(generator: torch.Generator, n_agents=8, m_per_agent=256,
+                 d=784, n_classes=10, lam=1e-4, heterogeneous=True, sep=3.0,
+                 device: DeviceLike = None) -> "LogisticRegression":
+        """Gaussian-mixture surrogate for MNIST drawn from `generator`, a
+        torch.Generator on `device`: the reference's distributions (class
+        centers sep * N(0, I/d), uniform labels, samples center + N(0,
+        I/d)), but not its random stream.  heterogeneous=True sorts by label
+        (stably) before partitioning, the paper's heterogeneous setting;
+        otherwise the samples are permuted at random."""
+        dev = resolve_device(device)
+        total = n_agents * m_per_agent
+        root_d = float(np.sqrt(d))
+        centers = sep * torch.randn((n_classes, d), generator=generator,
+                                    dtype=torch.float32, device=dev) / root_d
+        y = torch.randint(0, n_classes, (total,), generator=generator,
+                          device=dev)
+        xfeat = centers[y] + torch.randn((total, d), generator=generator,
+                                         dtype=torch.float32,
+                                         device=dev) / root_d
+        if heterogeneous:
+            order = torch.argsort(y, stable=True)
+        else:
+            order = torch.randperm(total, generator=generator, device=dev)
+        return LogisticRegression(
+            feats=xfeat[order].reshape(n_agents, m_per_agent, d),
+            labels=y[order].reshape(n_agents, m_per_agent),
+            n_classes=n_classes, lam=lam)
+
+    @staticmethod
+    def from_arrays(feats, labels, n_classes: int, lam: float,
+                    device: DeviceLike = None) -> "LogisticRegression":
+        """The instance with the given data (numpy arrays or tensors), e.g.
+        the reference's: feats copied as f32, labels as int64."""
+        dev = resolve_device(device)
+
+        def copy(a, dtype):
+            if isinstance(a, torch.Tensor):
+                return a.to(device=dev, dtype=dtype, copy=True)
+            return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+        return LogisticRegression(feats=copy(feats, torch.float32),
+                                  labels=copy(labels, torch.int64),
+                                  n_classes=int(n_classes), lam=float(lam))
+
+    @property
+    def n(self):
+        return self.feats.shape[0]
+
+    @property
+    def d(self):
+        """Flattened parameter dimension (d_features * n_classes)."""
+        return self.feats.shape[2] * self.n_classes
+
+    def _unflatten(self, X):
+        return X.reshape(X.shape[0], self.feats.shape[2], self.n_classes)
+
+    def full_grad(self, X):
+        """X: (n, d) -> per-agent gradients (n, d), analytically:
+        feats^T (softmax(logits) - onehot(labels)) / m + lam w."""
+        W = self._unflatten(X)
+        p = torch.softmax(torch.bmm(self.feats, W), dim=-1)     # (n, m, c)
+        p = p - torch.nn.functional.one_hot(self.labels,
+                                            self.n_classes).to(p.dtype)
+        g = torch.bmm(self.feats.transpose(1, 2), p) / self.feats.shape[1]
+        return (g + self.lam * W).reshape(X.shape)
+
+    def loss(self, X):
+        W = self._unflatten(X)
+        logp = torch.log_softmax(torch.bmm(self.feats, W), dim=-1)
+        nll = -torch.mean(torch.gather(logp, 2, self.labels[..., None]),
+                          dim=(1, 2))
+        return torch.mean(nll + 0.5 * self.lam * torch.sum(W ** 2, dim=(1, 2)))
+
+    def solve_x_star(self, iters=500) -> torch.Tensor:
+        """Global optimum by full-batch gradient descent on the average
+        objective (strongly convex => unique), from w = 0 with step 1/L for
+        the reference's crude Lipschitz estimate."""
+        L = float(torch.mean(torch.sum(self.feats ** 2, -1))) + self.lam
+        lr = 1.0 / L
+        w = torch.zeros(self.d, dtype=torch.float32, device=self.feats.device)
+        for _ in range(iters):
+            g = torch.mean(self.full_grad(w.expand(self.n, self.d)), dim=0)
+            w = w - lr * g
+        return w
 
 
 # -- metrics -----------------------------------------------------------------

@@ -10,16 +10,20 @@ what the family shares:
               reference's tile multiple so state shapes compare directly;
               zero rows are a fixed point of every kernel, so the padding
               never leaks.
-  * wire    - ``encode_payload``: the raw-values payload of an uncompressed
-              wire (d * 32 bits); ``quant_payload``: the payload, receiver
-              decode (kernels/quantize.decode) and wire bits of the fused
-              quantizer's codes and scales.
+  * wire    - ``encode_payload``: the pre-communication stage, three routes
+              as in the reference.  Identity/None ships the raw buffer (d *
+              32 bits); the paper's p=inf quantizer encodes the message with
+              K4 (kernels/quantize.encode) fed by the engine's dither plane,
+              and ``quant_payload`` gives the payload, the receiver decode
+              (K2) and the wire bits; every other compressor goes through its
+              ``encode_blocks``/``decode_blocks`` (core/compression.py), fed
+              by the engine's own draws.
   * gossip  - ``mix_payload``: the payload is decoded ONCE, then mixed
               densely (``gossip="dense"``, W @ q) or by the sparse
               neighbor gather (``gossip="neighbor"``) over the engine's
               Topology.
-  * dither  - the quantizer's U[0, 1) dither plane from ``fast_uniform``,
-              the reference's counter hash reproduced bit for bit.
+  * dither  - the U[0, 1) planes from ``fast_uniform``, the reference's
+              counter hash reproduced bit for bit.
 
 Every engine's iteration is the same three-beat bar (``_step_core``):
 
@@ -30,26 +34,30 @@ Every engine's iteration is the same three-beat bar (``_step_core``):
 Hyper-parameters are ``Schedule`` values (core/lead.py) resolved once per
 step at ``state.k``, a 0-d tensor on the engine's device, so nothing in a
 step waits for the host.  The step functions take the dither seed as an
-explicit uint32 value; the plane for step k is seeded with ``seed ^ k``,
-the reference's ``dither="fast"`` rule for a key whose last word is seed.
+explicit uint32 value; every random draw of step k is seeded with
+``seed ^ k``, the reference's ``dither="fast"`` rule for a key whose last
+word is seed.  The reference draws the random input of RandK, TopK's
+approximate mode and the p != inf quantizer from threefry keys; the port
+draws it from the same counter-hash stream, so those wires match the
+reference in distribution, and draw for draw when the reference's draws
+are injected (the parity tests do).
 
 Not ported yet (each raises NotImplementedError): ``dither="match"`` (the
-reference's threefry stream cannot be reproduced in torch), the generic
-``encode_blocks`` wire of other compressors and the fused ``quantize.encode``
-(K4), fault injection, time-varying banks, ``gossip="hier"`` and
-communication intervals.
+reference's threefry stream cannot be reproduced in torch), fault
+injection, time-varying banks, ``gossip="hier"``, communication intervals
+and, with them, the baselines' ``local_stage``.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Any, Dict
+from typing import Any, ClassVar, Dict
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import topology as topology_mod
-from repro_torch.core.compression import Identity, QuantizePNorm
+from repro_torch.core.compression import (Identity, QuantizePNorm, TopK,
+                                          _is_inf)
 from repro_torch.core.gossip import DenseGossip, EncodedNeighborGossip
 from repro_torch.core.lead import _at
 from repro_torch.core.stage_timer import mark
@@ -63,8 +71,7 @@ _MASK32 = 0xFFFFFFFF
 def _is_fused_quantizer(comp) -> bool:
     """True when the compressor is exactly what the fused kernels
     implement: the blockwise p=inf b-bit quantizer."""
-    return (isinstance(comp, QuantizePNorm)
-            and comp.p in (math.inf, "inf"))
+    return isinstance(comp, QuantizePNorm) and _is_inf(comp.p)
 
 
 def fast_uniform(shape, seed, device: DeviceLike = None) -> torch.Tensor:
@@ -116,7 +123,10 @@ class FlatEngineBase:
     once, here.
 
     Subclasses add their hyper-parameter fields (eta/gamma/...), each a
-    ``Schedule``, and implement ``init``, ``message`` and ``apply_stage``.
+    ``Schedule``, and implement ``init``, ``message`` and ``apply_stage``,
+    plus the class metadata ``state_cls`` (the state NamedTuple) and
+    ``consensus_init`` (how each non-x state field starts from a consensus
+    point: "copy" of x0 or "zeros"), ported as data.
     """
     topology: Any                      # Topology (or (n, n) matrix)
     dim: int                           # logical per-agent dimension d
@@ -125,6 +135,9 @@ class FlatEngineBase:
     gossip: str = "dense"              # "dense" | "neighbor"
     dither: str = "fast"               # the counter-hash dither stream
     device: DeviceLike = None          # None -> "cuda"
+
+    state_cls: ClassVar[type] = None
+    consensus_init: ClassVar[Dict[str, str]] = {}
 
     def __post_init__(self):
         object.__setattr__(self, "topology",
@@ -209,25 +222,64 @@ class FlatEngineBase:
         return {f: _at(getattr(self, f), k) for f in self.hyper_fields}
 
     # -- dither ------------------------------------------------------------
+    @staticmethod
+    def _step_seed(seed: int, k: torch.Tensor) -> torch.Tensor:
+        """seed ^ k, the uint32 seed of step k's draws, on k's device."""
+        return torch.bitwise_xor(k.to(torch.int64), int(seed) & _MASK32)
+
     def _dither_plane(self, seed: int, k: torch.Tensor) -> torch.Tensor:
         """U[0,1) dither (n, nb, block), seeded with seed ^ k on the
         device."""
-        s = torch.bitwise_xor(k.to(torch.int64), int(seed) & _MASK32)
-        return fast_uniform((self.n, self.nb, self.block), s)
+        return fast_uniform((self.n, self.nb, self.block),
+                            self._step_seed(seed, k))
+
+    def _draws(self, comp, seed: int, k: torch.Tensor) -> Dict[str, Any]:
+        """The random input of `comp`'s encode_blocks at step k, from the
+        counter-hash stream seeded seed ^ k: no input for exact TopK, the
+        (n, m) sample indices for approximate TopK, else the (n, dim)
+        uniforms of the logical elements (the dither plane's)."""
+        if isinstance(comp, TopK):
+            if not comp.approx_threshold:
+                return {}
+            u = fast_uniform((self.n, comp.sample_size(self.dim)),
+                             self._step_seed(seed, k))
+            mark("dither")
+            return {"idx": TopK.indices_from_uniform(u, self.dim)}
+        u = self.unblockify(self._dither_plane(seed, k))
+        mark("dither")
+        return {"u": u}
 
     # -- wire --------------------------------------------------------------
-    def encode_payload(self, buf: torch.Tensor):
+    def encode_payload(self, buf: torch.Tensor, seed: int, k: torch.Tensor):
         """Pre-communication stage: (payload, decode, wire_bits) for the
-        message `buf` (n, nb, block).  Identity/None ships the raw buffer
-        (d * 32 bits)."""
+        message `buf` (n, nb, block) at step k with dither seed `seed`.
+
+        payload is everything that may cross agents; decode maps it back to
+        the (n, nb, block) estimate; wire_bits is the per-agent bits of the
+        actual payload.  Identity/None ships the raw buffer (d * 32 bits).
+        The paper's p=inf quantizer encodes with K4 fed by the engine's
+        dither plane; every other compressor goes through its
+        encode_blocks wire path with the engine's draws."""
         comp = self.compressor
         if comp is None or isinstance(comp, Identity):
             bits = torch.full((), float(self.dim * 32), dtype=torch.float32,
                               device=buf.device)
             return {"values": buf}, (lambda pl: pl["values"]), bits
-        raise NotImplementedError(
-            f"the {type(comp).__name__} wire of a flat engine other than "
-            f"LEAD's fused quantizer (quantize.encode, K4) is {_LATER}")
+        if not hasattr(comp, "encode_blocks"):
+            raise NotImplementedError(
+                f"{type(comp).__name__} does not implement the flat "
+                "encode_blocks/decode_blocks wire protocol")
+        if _is_fused_quantizer(comp):
+            u = self._dither_plane(seed, k)
+            mark("dither")
+            code, scale = _q.encode(self._rows(buf), self._rows(u),
+                                    bits=comp.bits)
+            mark("encode")
+            return self.quant_payload(code, scale, comp.bits)
+        payload, bits = comp.encode_blocks(buf, self.dim,
+                                           **self._draws(comp, seed, k))
+        mark("encode")
+        return payload, comp.decode_blocks, bits
 
     def quant_payload(self, code: torch.Tensor, scale: torch.Tensor,
                       bits: int):
@@ -268,10 +320,19 @@ class FlatEngineBase:
         """Post-communication math: (new_state, comp_err)."""
         raise NotImplementedError
 
+    def local_stage(self, s, gb, hy):
+        """The no-communication step of a communication interval; the
+        interval path is not ported, so only LEAD (which the reference's
+        tests pin) has one."""
+        raise NotImplementedError(
+            f"{type(self).__name__}.local_stage (communication intervals) "
+            f"is {_LATER}")
+
     def encode_stage(self, s, gb, seed: int, hy):
         """message + wire encode: (payload, decode, wire_bits, ctx)."""
         msg, ctx = self.message(s, gb, hy)
-        payload, decode, bits = self.encode_payload(msg)
+        mark("message")
+        payload, decode, bits = self.encode_payload(msg, seed, s.k)
         return payload, decode, bits, ctx
 
     def _step_core(self, s, g, seed: int, hy):

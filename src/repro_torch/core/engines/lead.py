@@ -7,7 +7,9 @@ with the wire in between:
   * pre-communication - for the p=inf quantizer, kernels.lead_update.
     lead_diff_encode (K1): one read of (X, G, D, H, dither), one write of
     int8 codes + per-block scales.  Uncompressed (compressor=None), the
-    difference Y - H itself is the payload;
+    difference Y - H itself is the payload; any other compressor (RandK,
+    TopK, a p != inf quantizer) encodes Y - H through the base's generic
+    wire (engines/base.py::encode_payload);
   * the wire - the receiver decodes the payload once (kernels.quantize.
     decode, K2) and mixes it densely or over the neighbor table;
   * post-communication - kernels.lead_update.lead_update (K3): fused
@@ -50,7 +52,7 @@ class FlatLEADEngine(FlatEngineBase):
 
     compressor=None runs Identity (Qh = Y - H, no encode stage).  The p=inf
     QuantizePNorm takes the fused diff+encode kernel with the counter-hash
-    dither.
+    dither; every other compressor the base's generic wire.
 
     Two driving modes.  LEADSim passes a LEADHyper per call (init/
     step_wire); alternatively the engine's stored hypers (eta/gamma/alpha

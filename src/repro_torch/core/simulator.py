@@ -1,8 +1,8 @@
 """Single-device decentralized-training simulator.
 
-Runs an algorithm (LEAD via LEADSim, or a flat engine from core/engines) on
-an objective from core/convex.py, recording the paper's metrics per
-iteration:
+Runs an algorithm (LEAD via LEADSim, or any flat engine from core/engines:
+the baselines are driven directly) on an objective from core/convex.py,
+recording the paper's metrics per iteration:
 
     dist:      (1/n) sum ||x_i - x*||^2          (Fig. 1a, 2a, 3a)
     consensus: (1/n) sum ||x_i - xbar||^2        (Fig. 1c)

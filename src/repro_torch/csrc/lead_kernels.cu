@@ -3,10 +3,10 @@
 // state update (K3).  Every kernel works row-wise on f32 (rows, 512) planes,
 // rows = n_agents * nb, in the layout of the flat engine.
 //
-// Built by repro_torch/kernels/cuda_lib.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-//        -shared -Xcompiler -fPIC
-// into a shared library with a plain C interface, loaded through ctypes.
+// Built with wire_kernels.cu into one shared library with a plain C
+// interface by repro_torch/kernels/cuda_lib.py (nvcc -gencode
+// arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false), loaded through
+// ctypes.  K1 quantizes through quantize_row.cuh, which K4 shares.
 //
 // Exactness.  The quantizer computes floor(2^{b-1} |diff| / scale + u): an
 // element sitting on a level boundary flips its code under any change of
@@ -23,17 +23,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quantize_row.cuh"
+
 namespace {
-
-constexpr int kBlock = 512;                 // quantization block = one row
-constexpr int kWarp = 32;
-constexpr int kVec4PerLane = kBlock / (4 * kWarp);   // 4 float4 per lane
-constexpr int kRowsPerCta = 8;              // 8 warps = 256 threads
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float4 load4(const float* p, long long i4) {
-  return __ldg(reinterpret_cast<const float4*>(p) + i4);
-}
 
 // diff = x - eta*g - eta*d - h, left to right, each operation rounded.
 __device__ __forceinline__ float lead_diff(float x, float g, float d, float h,
@@ -41,14 +33,6 @@ __device__ __forceinline__ float lead_diff(float x, float g, float d, float h,
   return __fsub_rn(__fsub_rn(__fsub_rn(x, __fmul_rn(eta, g)),
                              __fmul_rn(eta, d)),
                    h);
-}
-
-// sign(v) * min(floor(c*|v| / safe + u), c) as int8; c = 2^{b-1} <= 64.
-__device__ __forceinline__ signed char quant(float v, float u, float c,
-                                             float safe) {
-  float lvl = floorf(__fadd_rn(__fdiv_rn(__fmul_rn(c, fabsf(v)), safe), u));
-  int l = static_cast<int>(fminf(lvl, c));
-  return static_cast<signed char>(v > 0.f ? l : (v < 0.f ? -l : 0));
 }
 
 // ---------------------------------------------------------------------------
@@ -81,8 +65,7 @@ lead_diff_encode_kernel(const float* __restrict__ x,
   const float eta = __ldg(eta_p);
   const long long base4 = row * (kBlock / 4);
 
-  float diff[4 * kVec4PerLane];
-  float amax = 0.f;
+  float diff[kValsPerLane];
 #pragma unroll
   for (int j = 0; j < kVec4PerLane; ++j) {
     const long long i4 = base4 + j * kWarp + lane;
@@ -92,27 +75,8 @@ lead_diff_encode_kernel(const float* __restrict__ x,
     diff[4 * j + 1] = lead_diff(xv.y, gv.y, dv.y, hv.y, eta);
     diff[4 * j + 2] = lead_diff(xv.z, gv.z, dv.z, hv.z, eta);
     diff[4 * j + 3] = lead_diff(xv.w, gv.w, dv.w, hv.w, eta);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) amax = fmaxf(amax, fabsf(diff[4 * j + e]));
   }
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-
-  const float c = static_cast<float>(1 << (bits - 1));
-  const float safe = amax > 0.f ? amax : 1.f;   // a zero row stays zero
-#pragma unroll
-  for (int j = 0; j < kVec4PerLane; ++j) {
-    const long long i4 = base4 + j * kWarp + lane;
-    const float4 uv = load4(u, i4);
-    char4 out;
-    out.x = quant(diff[4 * j + 0], uv.x, c, safe);
-    out.y = quant(diff[4 * j + 1], uv.y, c, safe);
-    out.z = quant(diff[4 * j + 2], uv.z, c, safe);
-    out.w = quant(diff[4 * j + 3], uv.w, c, safe);
-    reinterpret_cast<char4*>(code)[i4] = out;
-  }
-  if (lane == 0) scale[row] = amax > 0.f ? amax : 0.f;
+  quantize_row(diff, u, code, scale, row, base4, lane, bits);
 }
 
 // ---------------------------------------------------------------------------
@@ -204,17 +168,6 @@ lead_update_kernel(const float* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-// Grid for the grid-stride passes: enough resident CTAs to cover every SM
-// several times over, never more than the work needs.
-unsigned grid_for(long long n4) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long need = (n4 + kThreads - 1) / kThreads;
-  const long long cap = static_cast<long long>(sms) * 16;
-  return static_cast<unsigned>(need < cap ? need : cap);
-}
-
 }  // namespace
 
 extern "C" {
@@ -224,9 +177,7 @@ int repro_lead_diff_encode(const void* x, const void* g, const void* d,
                            void* code, void* scale, long long rows, int bits,
                            void* stream) {
   if (rows > 0) {
-    const unsigned grid =
-        static_cast<unsigned>((rows + kRowsPerCta - 1) / kRowsPerCta);
-    lead_diff_encode_kernel<<<grid, kThreads, 0,
+    lead_diff_encode_kernel<<<grid_for_rows(rows), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(g),
         static_cast<const float*>(d), static_cast<const float*>(h),

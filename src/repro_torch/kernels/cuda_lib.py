@@ -1,11 +1,14 @@
 """Build, load and launch-check the port's CUDA kernels.
 
-``csrc/lead_kernels.cu`` is compiled with nvcc for ``sm_90a`` into a shared
-library with a plain C interface and loaded with ctypes.  The build happens
-at first use, into ``build/kernels/`` at the root of the checkout, under a
-name keyed by a hash of the source and the flags, so a changed source
-rebuilds and an unchanged one loads at once.  Nothing here runs at import:
-the CPU tests import every module on a machine without nvcc.
+The sources in ``csrc/`` (``lead_kernels.cu``: K1-K3; ``wire_kernels.cu``:
+K4-K6; both include ``quantize_row.cuh``) are compiled with nvcc for
+``sm_90a``, one nvcc per source, all started together, and linked into one
+shared library with a plain C interface, loaded with ctypes.  The build
+happens at first use, into ``build/kernels/`` at the root of the checkout,
+under a name keyed by a hash of every source and header and of the flags,
+so a changed source rebuilds and an unchanged one loads at once.  Nothing
+here runs at import: the CPU tests import every module on a machine
+without nvcc.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run
 resets it and reads it back to show which path it went through.
@@ -18,18 +21,25 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "lead_kernels.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+# compiled, one object each; the header is included, and hashed
+SOURCE = [CSRC / "lead_kernels.cu", CSRC / "wire_kernels.cu"]
+HEADERS = [CSRC / "quantize_row.cuh"]
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # -fmad=false: no FP contraction, which would flip knife-edge codes; no
 # --use_fast_math, so the divide stays IEEE round-to-nearest
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+                     "-fPIC")
+LINK_FLAGS = ARCH + ("-shared",)
 
-LAUNCHES = {"lead_diff_encode": 0, "quantize_decode": 0, "lead_update": 0}
+LAUNCHES = {"lead_diff_encode": 0, "quantize_decode": 0, "lead_update": 0,
+            "quantize_encode": 0, "randk_encode": 0, "mask_apply": 0}
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -40,6 +50,13 @@ _SIGNATURES = {
                                          ctypes.c_int, _P],
     # x, g, d, h, hw, qh, wqh, eta, gamma, alpha, xo, do, ho, hwo, n, stream
     "repro_lead_update": [_P] * 14 + [ctypes.c_longlong, _P],
+    # x, u, code, scale, rows, bits, stream
+    "repro_quantize_encode": [_P] * 4 + [ctypes.c_longlong, ctypes.c_int, _P],
+    # x, u, out, n, ratio, scale, stream (the floats rounded to f32 here)
+    "repro_randk_encode": [_P] * 3 + [ctypes.c_longlong, ctypes.c_float,
+                                      ctypes.c_float, _P],
+    # x, mask, out, n, stream
+    "repro_mask_apply": [_P] * 3 + [ctypes.c_longlong, _P],
 }
 
 
@@ -56,27 +73,48 @@ def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA kernels are built from "
-                           f"{SOURCE} with the CUDA toolkit")
+                           f"{CSRC} with the CUDA toolkit")
     return path
+
+
+def _run_all(cmds) -> None:
+    """Start every command at once; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [(p.communicate()[0], p.returncode) for p in procs]
+    for (out, rc), cmd in zip(outs, cmds):
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+
+
+def build_tag() -> str:
+    """Hash of every source and header in csrc/ and of the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for path in SOURCE + HEADERS:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()[:16]
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if this source has no build.
-    The build writes a temporary file and renames it, so concurrent
-    processes never load a half-written library."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lead_kernels_{tag}.so"
+    """The loaded kernel library, built first if these sources have no
+    build.  Each source compiles to its own object in a private temporary
+    directory, all nvcc processes at once; the link writes a temporary
+    file that is renamed into place, so concurrent processes never load a
+    half-written library."""
+    so = BUILD_DIR / f"repro_kernels_{build_tag()}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f".lead_kernels_{tag}.{os.getpid()}.so"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCE]
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                      for src, o in zip(SOURCE, objs)])
+            lib = Path(tmp) / so.name
+            _run_all([[nvcc, *LINK_FLAGS, "-o", str(lib),
+                       *(str(o) for o in objs)]])
+            os.replace(lib, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -5,7 +5,7 @@ tensors it is given, and from nothing else:
 
     CPU tensors    the plain PyTorch version (kernels/ref.py): the CPU
                    tests, and the reference the kernels are held against;
-    CUDA tensors   the hand-written Hopper kernel (csrc/lead_kernels.cu).
+    CUDA tensors   the hand-written Hopper kernel (csrc/*.cu).
 
 There is no override.  A CUDA tensor launches its kernel or raises; it
 never falls back to the plain version.

@@ -52,3 +52,16 @@ def lead_diff_encode_ref(x, g, d, h, u, eta, bits):
     """
     diff = x - eta * g - eta * d - h
     return quantize_encode_ref(diff, u, bits)
+
+
+def randk_encode_ref(x, u, ratio, scale):
+    """Shared-seed random-k keep plane: x * scale where u < ratio, else 0.
+
+    ratio and scale are python floats; torch takes them as f32 operands,
+    as the reference's weakly typed scalars are."""
+    return torch.where(u < ratio, x * scale, 0.0)
+
+
+def mask_apply_ref(x, mask):
+    """Top-k value plane: x * mask (mask is an exact-k 0/1 f32 plane)."""
+    return x * mask.to(torch.float32)
