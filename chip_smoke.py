@@ -16,8 +16,10 @@ printing one JSON line; a failed check exits nonzero.
                  0.1, rescale on and off) and K6 mask apply likewise at both
                  shapes of the baselines' path: Fig. 2's (8 agents x 16
                  blocks, d = 7,840 zero-padded) and the real size's; then
-                 every kernel timed at the real size with CUDA events against
-                 its byte bound
+                 every kernel timed at the real size with CUDA events (10
+                 launches back to back) against its byte bound, and K2 and
+                 K6 in turns with the one PyTorch call that computes each
+                 (kernel, library, library, kernel)
   headline       the README's run on the card: ring-8 linear regression, LEAD
                  with the 2-bit quantizer against DGD for 300 iterations,
                  every LEAD kernel launched once per step; plus uncompressed
@@ -65,7 +67,8 @@ STAGE_NAMES = {"gradient": "gradient", "dither": "dither",
                "diff_encode": "K1_diff_encode", "decode": "K2_decode",
                "mix": "dense_mix", "update": "K3_update",
                "comp_err": "comp_err", "metrics": "metrics"}
-REPS = 20
+REPS = 20                   # kernel timing: median of 20 batches of 10 calls
+BATCH = 10
 TRACE_RTOL = 1e-5           # trajectory tolerance, as the CPU parity tests
 TRACE_FLOOR = 1e-2
 LEAD_KERNELS = ("lead_diff_encode", "quantize_decode", "lead_update")
@@ -127,20 +130,37 @@ def card_rates(name):
     return bw, flops
 
 
-def time_ms(fn, reps=REPS, warmup=3):
-    """Median over `reps` launches of fn's device time, by CUDA events."""
+def time_ms(fn, reps=REPS, batch=BATCH, warmup=3):
+    """fn's device time: the median over `reps` of the CUDA-event time of
+    `batch` calls queued back to back, divided by `batch`.  One untimed call
+    ahead of the first event keeps the device busy while the host queues
+    the rest, so no host-side launch cost enters."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
+        a.record()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
+
+
+def time_in_turns(kernel, library):
+    """Kernel and library call timed in turns - kernel, library, library,
+    kernel - each turn a time_ms median, so that neither side gains from
+    going first.  Returns each side's mean of its two medians and the two
+    medians themselves."""
+    k1 = time_ms(kernel)
+    l1 = time_ms(library)
+    l2 = time_ms(library)
+    k2 = time_ms(kernel)
+    return (k1 + k2) / 2, (l1 + l2) / 2, [k1, k2], [l1, l2]
 
 
 def check(cond, msg):
@@ -378,7 +398,16 @@ def phase_kernels(dev, bw, flops):
     k1_ms = time_ms(lambda: lu.lead_diff_encode(x, g, d, h, u, eta, bits=2))
     k1_plain = time_ms(lambda: lu.lead_diff_encode_plain(x, g, d, h, u, eta, 2))
     code, scale = lu.lead_diff_encode(x, g, d, h, u, eta, bits=2)
-    k2_ms = time_ms(lambda: q.decode(code, scale, bits=2))
+    # one PyTorch call computes decode: int8 codes times the f32 (rows, 1)
+    # column scale * 2^(1-b), whose product is exact, so it gives the plain
+    # version's bits; the column's product is part of the function
+    def k2_library():
+        return torch.mul(code, scale * 2.0 ** (1 - 2))
+
+    check(torch.equal(k2_library(), q.decode(code, scale, bits=2)),
+          "torch.mul(code, scale * 2**(1-bits)) != K2")
+    k2_ms, k2_lib, k2_halves, k2_lib_halves = time_in_turns(
+        lambda: q.decode(code, scale, bits=2), k2_library)
     k2_plain = time_ms(lambda: q.decode_plain(code, scale, 2))
     del u, code, scale
     planes = (x, g, d, h, hw, qh, wqh)
@@ -394,9 +423,11 @@ def phase_kernels(dev, bw, flops):
     k5_plain = time_ms(lambda: sp.randk_encode_plain(x, u, 0.1, 1.0 / 0.1))
     n_kept = int((u < 0.1).sum())
     mask = (u < 0.01).to(torch.float32)
-    k6_ms = time_ms(lambda: sp.mask_apply(x, mask))
+    check(torch.equal(torch.mul(x, mask), sp.mask_apply(x, mask)),
+          "torch.mul(x, mask) != K6")
+    k6_ms, k6_lib, k6_halves, k6_lib_halves = time_in_turns(
+        lambda: sp.mask_apply(x, mask), lambda: torch.mul(x, mask))
     k6_plain = time_ms(lambda: sp.mask_apply_plain(x, mask))
-    k6_lib = time_ms(lambda: torch.mul(x, mask))
     del x, u, mask
     torch.cuda.empty_cache()
 
@@ -410,7 +441,9 @@ def phase_kernels(dev, bw, flops):
         "quantize_decode": dict(
             replaces="src/repro/kernels/quantize.py:84",
             bytes=n * 5 + ROWS * 4, ops=n + ROWS, ms=k2_ms,
-            plain_ms=k2_plain),
+            plain_ms=k2_plain, library_ms=k2_lib,
+            library="torch.mul(code, scale * 2**(1-bits))",
+            turns=(k2_halves, k2_lib_halves)),
         "lead_update": dict(
             replaces="src/repro/kernels/lead_update.py:49",
             bytes=n * 44 + 12, ops=n * 15, ms=k3_ms, plain_ms=k3_plain),
@@ -423,7 +456,8 @@ def phase_kernels(dev, bw, flops):
         "mask_apply": dict(
             replaces="src/repro/kernels/sparsify.py:76",
             bytes=n * 12, ops=n, ms=k6_ms, plain_ms=k6_plain,
-            library_ms=k6_lib, library="torch.mul(x, mask)"),
+            library_ms=k6_lib, library="torch.mul(x, mask)",
+            turns=(k6_halves, k6_lib_halves)),
     }
     sources = {"lead_diff_encode": "lead_kernels.cu",
                "quantize_decode": "lead_kernels.cu",
@@ -443,7 +477,16 @@ def phase_kernels(dev, bw, flops):
             "library_ms": s.get("library_ms"), "bytes": s["bytes"],
             "achieved_GBps": s["bytes"] / (s["ms"] * 1e-3) / 1e9})
         if "library" in s:
-            rows[-1]["library"] = s["library"]
+            # timed in turns: the kernel loses when its mean exceeds the
+            # library's by more than the larger spread of either side's two
+            # medians in this call
+            halves, lib_halves = s["turns"]
+            spread = max(abs(halves[0] - halves[1]),
+                         abs(lib_halves[0] - lib_halves[1]))
+            rows[-1].update(
+                library=s["library"], ms_turns=halves,
+                library_ms_turns=lib_halves,
+                loses_to_library=s["ms"] - s["library_ms"] > spread)
     emit({"phase": "kernels", "held_at_rows": [r for _, r in held],
           "timed_rows": ROWS, "block": BLOCK, "hbm_Bps": bw, "kernels": rows})
     return rows

@@ -11,12 +11,13 @@
 // so each kernel is bit-identical to its plain version on the same card.
 //
 // Each C entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError() (0 = the launch was accepted).
+// returns the first CUDA error of the launch (0 = the launch was accepted).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "quantize_row.cuh"
+#include "stream_tiles.cuh"
 
 namespace {
 
@@ -92,26 +93,26 @@ randk_encode_kernel(const float* __restrict__ x, const float* __restrict__ u,
 // K6 mask apply.  Replaces src/repro/kernels/sparsify.py::mask_apply
 // (_mask_apply_kernel).  Bound: bytes.  Reads x and the f32 0/1 mask, writes
 // x * mask: 12 B/element.
-// Design: the same grid-stride float4 pass as K5.  The mask stays the
-// reference's f32 plane (a byte mask would cut 3 of the 12 B/element and is
-// left to a later change).
+// Design: the TMA pipeline of stream_tiles.cuh: one CTA per run of four
+// 16 KB tiles of each plane, with four stages, so the whole run is in
+// flight from the start (131 KB of shared memory, one CTA per SM at a
+// time); the product is formed in shared memory in place of the x tile,
+// which a bulk copy stores.  Run length, stages and tile size were chosen
+// on an H100 by scripts/mask_apply_designs.py: longer runs through the
+// refilled ring, and a persistent grid, measured slower.
+// The mask stays the reference's f32 plane (a byte mask would cut 3 of the
+// 12 B/element and is left to a later change).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-mask_apply_kernel(const float* __restrict__ x, const float* __restrict__ mask,
-                  float* __restrict__ out, long long n4) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n4; i += stride) {
-    const float4 xv = load4(x, i), mv = load4(mask, i);
-    float4 o;
-    o.x = __fmul_rn(xv.x, mv.x);
-    o.y = __fmul_rn(xv.y, mv.y);
-    o.z = __fmul_rn(xv.z, mv.z);
-    o.w = __fmul_rn(xv.w, mv.w);
-    reinterpret_cast<float4*>(out)[i] = o;
+constexpr int kMaskTileBytes = 16 * 1024;
+constexpr int kMaskStages = 4;
+constexpr int kMaskRunTiles = 4;
+
+struct MaskApply {
+  __device__ __forceinline__ float4 operator()(const float4 (&v)[2]) const {
+    return make_float4(__fmul_rn(v[0].x, v[1].x), __fmul_rn(v[0].y, v[1].y),
+                       __fmul_rn(v[0].z, v[1].z), __fmul_rn(v[0].w, v[1].w));
   }
-}
+};
 
 }  // namespace
 
@@ -144,14 +145,12 @@ int repro_randk_encode(const void* x, const void* u, void* out, long long n,
 
 int repro_mask_apply(const void* x, const void* mask, void* out, long long n,
                      void* stream) {
-  const long long n4 = n / 4;
-  if (n4 > 0) {
-    mask_apply_kernel<<<grid_for(n4), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(mask),
-        static_cast<float*>(out), n4);
-  }
-  return static_cast<int>(cudaGetLastError());
+  StreamPlanes<2> planes{{static_cast<const float*>(x),
+                          static_cast<const float*>(mask)},
+                         static_cast<float*>(out)};
+  return static_cast<int>(
+      launch_stream_tiles<2, kMaskTileBytes, kMaskStages, kMaskRunTiles>(
+          planes, n, MaskApply{}, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

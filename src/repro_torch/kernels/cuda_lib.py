@@ -1,7 +1,8 @@
 """Build, load and launch-check the port's CUDA kernels.
 
 The sources in ``csrc/`` (``lead_kernels.cu``: K1-K3; ``wire_kernels.cu``:
-K4-K6; both include ``quantize_row.cuh``) are compiled with nvcc for
+K4-K6; both include ``quantize_row.cuh``, and K6 runs on the TMA pipeline
+of ``stream_tiles.cuh``) are compiled with nvcc for
 ``sm_90a``, one nvcc per source, all started together, and linked into one
 shared library with a plain C interface, loaded with ctypes.  The build
 happens at first use, into ``build/kernels/`` at the root of the checkout,
@@ -27,9 +28,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-# compiled, one object each; the header is included, and hashed
+# compiled, one object each; the headers are included, and hashed
 SOURCE = [CSRC / "lead_kernels.cu", CSRC / "wire_kernels.cu"]
-HEADERS = [CSRC / "quantize_row.cuh"]
+HEADERS = [CSRC / "quantize_row.cuh", CSRC / "stream_tiles.cuh"]
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # -fmad=false: no FP contraction, which would flip knife-edge codes; no
 # --use_fast_math, so the divide stays IEEE round-to-nearest

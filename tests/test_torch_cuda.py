@@ -101,6 +101,38 @@ def test_wire_kernels_equal_plain_versions(cuda_device, bits):
     assert after["mask_apply"] == before["mask_apply"] + 1
 
 
+# K6's TMA pipeline (csrc/stream_tiles.cuh) at its edges: one row, a few,
+# a row count that is no tile multiple, a plane of less than one 16 KB tile,
+# a partial last tile, and the real size (16,384 runs of four tiles)
+MASK_SHAPES = [(1, 512), (3, 512), (129, 512), (3, 20), (4097, 512),
+               (524288, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MASK_SHAPES, ids=str)
+def test_mask_apply_pipeline_edges(cuda_device, shape):
+    """K6 bit-identical to its plain version at every edge of its tiling,
+    zero padding staying zero; the output's memory is poisoned with NaN
+    first, so a tile the kernel missed shows.  One launch per call."""
+    rows, cols = shape
+    pad = cols - cols // 4                      # zero columns from here on
+    gen = torch.Generator(cuda_device).manual_seed(rows * 1000 + cols)
+    x = torch.randn(shape, generator=gen, device=cuda_device)
+    x[:, pad:] = 0.0
+    mask = (torch.rand(shape, generator=gen, device=cuda_device) < 0.3
+            ).to(torch.float32)
+    mask[:, pad:] = 1.0
+    poison = torch.full_like(x, float("nan"))   # freed: the output's block
+    del poison
+    before = cuda_lib.launch_counts()
+    got = sp.mask_apply(x, mask)
+    assert cuda_lib.launch_counts() == {**before,
+                                        "mask_apply": before["mask_apply"] + 1}
+    want = sp.mask_apply_plain(x, mask)
+    assert torch.equal(got, want)
+    assert not bool(got[:, pad:].any())
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     x = torch.zeros(8, 512, device=cuda_device)

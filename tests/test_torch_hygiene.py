@@ -1,6 +1,6 @@
-"""The port stands alone: src/repro_torch and chip_smoke.py import no jax
-and nothing of the JAX package (repro), even modules of it that are pure
-numpy.  Only the parity tests import both."""
+"""The port stands alone: src/repro_torch, chip_smoke.py and scripts/
+import no jax and nothing of the JAX package (repro), even modules of it
+that are pure numpy.  Only the parity tests import both."""
 import ast
 import os
 import subprocess
@@ -12,6 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
+SCRIPTS = sorted((ROOT / "scripts").glob("*.py"))
 
 
 def _imported_modules(path: Path):
@@ -22,13 +23,25 @@ def _imported_modules(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", PORT_FILES,
-                         ids=lambda p: str(p.relative_to(ROOT)))
-def test_port_file_imports_no_jax_and_no_reference(path):
+def _assert_no_jax_and_no_reference(path: Path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib"), f"{path}: imports {name}"
         assert top != "repro", f"{path}: imports {name} from the reference"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax_and_no_reference(path):
+    _assert_no_jax_and_no_reference(path)
+
+
+@pytest.mark.parametrize("path", SCRIPTS,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_script_imports_no_jax_and_no_reference(path):
+    """The port's measurement scripts run on the card's machine, which has
+    no jax: they import neither it nor the reference."""
+    _assert_no_jax_and_no_reference(path)
 
 
 def test_importing_the_port_loads_no_jax():

@@ -231,6 +231,18 @@ def test_fast_uniform_is_the_reference_stream(seed):
     np.testing.assert_array_equal(got_t.numpy(), np.asarray(want))
 
 
+# -- build -------------------------------------------------------------------
+
+def test_kernel_build_covers_every_source():
+    """Every file in csrc/ is compiled (SOURCE) or hashed into the build tag
+    as a header (HEADERS): a header left out would keep a stale library in
+    use after it changed."""
+    assert sorted(p.name for p in cuda_lib.CSRC.iterdir()) == sorted(
+        p.name for p in cuda_lib.SOURCE + cuda_lib.HEADERS)
+    assert all(p.suffix == ".cu" for p in cuda_lib.SOURCE)
+    assert all(p.suffix == ".cuh" for p in cuda_lib.HEADERS)
+
+
 # -- dispatch ------------------------------------------------------------------
 
 def test_dispatch_by_device_never_falls_back():

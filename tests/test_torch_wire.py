@@ -180,6 +180,32 @@ def test_wire_kernels_dispatch_by_device():
             call()
 
 
+# -- the library yardsticks that chip_smoke.py times beside K2 and K6 --------
+
+@pytest.mark.parametrize("case", ["decode_b2", "decode_b4", "decode_b7",
+                                  "mask_apply"])
+def test_library_yardstick_computes_the_kernel_function(case):
+    """Each one-call PyTorch yardstick gives its kernel's plain version bit
+    for bit: torch.mul(code, scale * 2**(1-b)) is K2's decode (int8 codes
+    times an f32 (rows, 1) column; the column's product is exact) and equals
+    the reference's eager decode; torch.mul(x, mask) is K6."""
+    x, u = _x_u(40 + len(case), ROWS)
+    if case == "mask_apply":
+        mask = (u < 0.01).astype(np.float32)
+        xt, mt = _t(x, mask)
+        assert torch.equal(torch.mul(xt, mt), sp.mask_apply_plain(xt, mt))
+        return
+    bits = int(case[-1])
+    code, scale = q.encode_plain(*_t(x, u), bits)
+    got = torch.mul(code, scale * 2.0 ** (1 - bits))
+    assert got.dtype == torch.float32
+    assert torch.equal(got, q.decode_plain(code, scale, bits))
+    with jax.disable_jit():
+        want = jax_ref.quantize_decode_ref(*_j(code.numpy(), scale.numpy()),
+                                           bits)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 # -- code bit packing ----------------------------------------------------------
 
 @pytest.mark.parametrize("bits", [1, 2, 3, 4, 7])
