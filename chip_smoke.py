@@ -3,8 +3,9 @@
 
     PYTHONPATH=src python3 chip_smoke.py
 
-Builds the kernels from src/repro_torch/csrc, then runs six phases, each
-printing one JSON line; a failed check exits nonzero.
+Builds the kernels from src/repro_torch/csrc, then runs nine phases, each
+printing one JSON line (baselines_at_scale and tree_at_scale one per run);
+a failed check exits nonzero.
 
   env            card name and power limit, torch and CUDA versions, build time
   kernels        K1 lead_diff_encode, K2 quantize decode (each at b = 2, 4, 7)
@@ -20,6 +21,13 @@ printing one JSON line; a failed check exits nonzero.
                  launches back to back) against its byte bound, and K2 and
                  K6 in turns with the one PyTorch call that computes each
                  (kernel, library, library, kernel)
+  blocks         K1, K4 and K2 at block widths 1, 3, 16, 100, 256, 512, 1024
+                 and 4096 (512 is the float4 hot path, every other width the
+                 strided routine), b = 2, 4 and 7, each bit-identical to its
+                 plain version with one launch per call; then K1, K4 and K2
+                 timed at 2^28 elements in blocks of 16, 256 and 512, the 512
+                 rows held within 5% of the hot path's recorded times on a
+                 700 W card
   headline       the README's run on the card: ring-8 linear regression, LEAD
                  with the 2-bit quantizer against DGD for 300 iterations,
                  every LEAD kernel launched once per step; plus uncompressed
@@ -30,6 +38,13 @@ printing one JSON line; a failed check exits nonzero.
                  paper's ordering checked, each compressed baseline through
                  K4 and K2 once per step, and the exact baselines held
                  against the same runs on the CPU
+  fig1           the paper's Fig. 1 on the card through the tree path: ring-8
+                 linear regression (m = d = 200), eta 0.05, 300 iterations of
+                 tree LEAD, flat LEAD, NIDS, DGD, CHOCO, DeepSqueeze and QDGD
+                 (the baselines are the tree algorithms); the reference's
+                 ordering checked, tree LEAD through K4 and K2 once per step
+                 and never K1 or K3, and NIDS and DGD held against the same
+                 runs on the CPU
   lead_at_scale  LEAD's path at real size: n = 8 agents, d = 2^25 f32
                  parameters each, 2-bit LEAD for 20 steps through run(), then
                  a per-stage breakdown of run() itself from CUDA events at
@@ -39,6 +54,11 @@ printing one JSON line; a failed check exits nonzero.
                  each compressed wire - the 2-bit quantizer (K4, K2), RandK
                  (K5) and exact TopK (K6) - with its ms/step, peak memory and
                  stage breakdown
+  tree_at_scale  the tree path at the same size, 20 steps after one warm-up
+                 step: tree LEAD and tree CHOCO on the 2-bit quantizer (K4,
+                 K2 once per step; K1 and K3 never), tree CHOCO on RandK
+                 (K5) and exact TopK (K6), each with its ms/step, peak memory
+                 and stage breakdown
 
 The line before the last lists every kernel with its launches on the main
 path, its error against the plain version and its times; the last line is
@@ -105,6 +125,37 @@ CHOCO_WIRES = {   # wire: (gamma, kernels it launches, its stage names)
 CHOCO_STAGES = {"gradient": "gradient", "message": "message",
                 "mix": "dense_mix", "update": "update",
                 "comp_err": "comp_err", "metrics": "metrics"}
+
+
+# block widths held bit for bit (blocks phase), and those timed at 2^28
+# elements; the recorded times of the 512-wide hot path (PERF.md, NVIDIA
+# H100 80GB HBM3, 700 W), held within 5% on a 700 W card
+BLOCKS = (1, 3, 16, 100, 256, 512, 1024, 4096)
+TIMED_BLOCKS = (16, 256, 512)
+HOT_PATH_MS = {"lead_diff_encode": 1.827, "quantize_encode": 0.775}
+
+# Fig. 1: benchmarks/bench_linreg.py's run (ring 8, m = d = 200, lam 0.1,
+# eta 0.05, 300 iterations, 2-bit p=inf in blocks of 512)
+FIG1_ITERS = 300
+FIG1_ETA = 0.05
+
+# the tree path at scale: (run, kernels it launches, its stage names)
+TREE_RUNS = {
+    "lead_pinf_2bit": (("quantize_encode", "quantize_decode"),
+                       {"dither": "dither", "encode": "K4_encode",
+                        "decode": "K2_decode"}),
+    "choco_pinf_2bit": (("quantize_encode", "quantize_decode"),
+                        {"dither": "dither", "encode": "K4_encode",
+                         "decode": "K2_decode"}),
+    "choco_randk_0.1": (("randk_encode",),
+                        {"dither": "dither", "encode": "K5_randk_encode"}),
+    "choco_topk_0.01": (("mask_apply",),
+                        {"topk_mask": "topk_mask",
+                         "encode": "K6_mask_apply"}),
+}
+TREE_STAGES = {"gradient": "gradient", "message": "message",
+               "mix": "dense_mix", "update": "update",
+               "comp_err": "comp_err", "metrics": "metrics"}
 
 
 def choco_compressor(wire):
@@ -492,6 +543,91 @@ def phase_kernels(dev, bw, flops):
     return rows
 
 
+def phase_blocks(dev, bw, flops, power_w):
+    """K1, K4 and K2 at every block width of BLOCKS against their plain
+    versions (bit-identical, one launch per call), then timed at 2^28
+    elements for TIMED_BLOCKS."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import lead_update as lu
+    from repro_torch.kernels import quantize as q
+
+    def once(name, fn):
+        """fn() with a check that it launched `name` once and nothing else."""
+        before = cuda_lib.launch_counts()
+        out = fn()
+        after = cuda_lib.launch_counts()
+        check({k: after[k] - before[k] for k in after}
+              == {k: int(k == name) for k in after},
+              f"blocks: {name} launched {after} after {before}")
+        return out
+
+    held = {}
+    for block in BLOCKS:
+        rows = max(8, (1 << 20) // block)
+        gen = torch.Generator(dev).manual_seed(block)
+        x, g, d, h = (torch.randn(rows, block, generator=gen, device=dev)
+                      for _ in range(4))
+        x[1] = 0.0                              # a zero row stays zero
+        u = torch.rand(rows, block, generator=gen, device=dev)
+        eta = torch.full((), 0.07, device=dev)
+        for bits in (2, 4, 7):
+            where = f"block={block} rows={rows} b={bits}"
+            c1, s1 = once("quantize_encode", lambda: q.encode(x, u, bits=bits))
+            c2, s2 = q.encode_plain(x, u, bits)
+            check(torch.equal(c1, c2) and torch.equal(s1, s2),
+                  f"K4 {where}: {int((c1 != c2).sum())} codes, "
+                  f"{int((s1 != s2).sum())} scales differ")
+            check(float(s1[1]) == 0.0 and not bool(c1[1].any()),
+                  f"K4 {where}: the zero row is not zero")
+            k1, t1 = once("lead_diff_encode", lambda: lu.lead_diff_encode(
+                x, g, d, h, u, eta, bits=bits))
+            k2, t2 = lu.lead_diff_encode_plain(x, g, d, h, u, eta, bits)
+            check(torch.equal(k1, k2) and torch.equal(t1, t2),
+                  f"K1 {where}: {int((k1 != k2).sum())} codes, "
+                  f"{int((t1 != t2).sum())} scales differ")
+            o1 = once("quantize_decode", lambda: q.decode(c1, s1, bits=bits))
+            e = max_abs(o1, q.decode_plain(c1, s1, bits))
+            check(e == 0.0, f"K2 {where}: max |kernel - plain| = {e}")
+        held[block] = rows
+        del x, g, d, h, u
+    torch.cuda.empty_cache()
+
+    n = ROWS * BLOCK
+    timed = {}
+    for block in TIMED_BLOCKS:
+        rows = n // block
+        gen = torch.Generator(dev).manual_seed(block)
+        x, g, d, h = (torch.randn(rows, block, generator=gen, device=dev)
+                      for _ in range(4))
+        u = torch.rand(rows, block, generator=gen, device=dev)
+        eta = torch.full((), 0.07, device=dev)
+        code, scale = q.encode(x, u, bits=2)
+        specs = {
+            "lead_diff_encode": (lambda: lu.lead_diff_encode(
+                x, g, d, h, u, eta, bits=2), n * 21 + rows * 4 + 4, n * 13),
+            "quantize_encode": (lambda: q.encode(x, u, bits=2),
+                                n * 9 + rows * 4, n * 8),
+            "quantize_decode": (lambda: q.decode(code, scale, bits=2),
+                                n * 5 + rows * 4, n + rows),
+        }
+        for name, (fn, nbytes, ops) in specs.items():
+            ms = time_ms(fn)
+            bound = max(nbytes / bw, ops / flops) * 1e3
+            timed[f"{name}/{block}"] = {"ms": ms, "bound_ms": bound,
+                                        "share_of_bound": bound / ms}
+        del x, g, d, h, u, code, scale
+        torch.cuda.empty_cache()
+    held_512 = power_w >= 700.0
+    for name, ms in HOT_PATH_MS.items():
+        if held_512:
+            got = timed[f"{name}/512"]["ms"]
+            check(got <= 1.05 * ms, f"blocks: {name} at 512 takes {got} ms, "
+                  f"more than 5% over the recorded {ms}")
+    emit({"phase": "blocks", "held_rows": held, "bits": [2, 4, 7],
+          "timed_elements": n, "timed": timed, "hot_path_ms": HOT_PATH_MS,
+          "held_512_to_recorded": held_512})
+
+
 def phase_headline(dev):
     from repro_torch.core import topology
     from repro_torch.core.compression import QuantizePNorm
@@ -669,6 +805,99 @@ def phase_fig2(dev):
     return launches
 
 
+def bits_to_reach(tr, level):
+    """Cumulative bits per agent at the first recorded step whose dist is
+    below `level` (inf if none is)."""
+    hit = np.nonzero(tr.dist < level)[0]
+    return float(tr.bits_per_agent[hit[0]]) if len(hit) else float("inf")
+
+
+def phase_fig1(dev):
+    """The paper's Fig. 1 on the card (benchmarks/bench_linreg.py's
+    configuration) through the tree path, on the port's own problem."""
+    from repro_torch.core import topology
+    from repro_torch.core.baselines import (CHOCO_SGD, DGD, NIDS, QDGD,
+                                            DeepSqueeze)
+    from repro_torch.core.compression import QuantizePNorm
+    from repro_torch.core.convex import LinearRegression
+    from repro_torch.core.gossip import DenseGossip
+    from repro_torch.core.simulator import LEADSim, run
+    from repro_torch.kernels import cuda_lib
+
+    prob = LinearRegression.generate(torch.Generator(dev).manual_seed(0),
+                                     n_agents=8, m=200, d=200, lam=0.1,
+                                     device=dev)
+    x_star = prob.x_star
+    q2 = QuantizePNorm(bits=2, block=512)
+
+    def algo(name, device):
+        g = DenseGossip.from_topology(topology.ring(8), device)
+        lead = dict(compressor=q2, eta=FIG1_ETA, gamma=1.0, alpha=0.5)
+        return {
+            "lead_tree": lambda: LEADSim(gossip=g, engine="tree", **lead),
+            "lead_flat": lambda: LEADSim(gossip=g, engine="flat", **lead),
+            "nids": lambda: NIDS(gossip=g, eta=FIG1_ETA),
+            "dgd": lambda: DGD(gossip=g, eta=FIG1_ETA),
+            "choco": lambda: CHOCO_SGD(gossip=g, compressor=q2, eta=FIG1_ETA,
+                                       gamma=0.8),
+            "deepsqueeze": lambda: DeepSqueeze(gossip=g, compressor=q2,
+                                               eta=FIG1_ETA, gamma=0.2),
+            "qdgd": lambda: QDGD(gossip=g, compressor=q2, eta=FIG1_ETA,
+                                 gamma=0.2),
+        }[name]()
+
+    names = ("lead_tree", "lead_flat", "nids", "dgd", "choco", "deepsqueeze",
+             "qdgd")
+    tr, launches = {}, {}
+    for name in names:
+        cuda_lib.reset_launch_counts()
+        tr[name] = run(algo(name, dev), prob, x_star, iters=FIG1_ITERS)
+        launches[name] = cuda_lib.launch_counts()
+        check(all(np.isfinite(a).all() for a in tr[name]),
+              f"fig1: {name} non-finite")
+    expect_launches(launches["lead_tree"],
+                    {"quantize_encode": FIG1_ITERS,
+                     "quantize_decode": FIG1_ITERS}, "fig1 lead_tree")
+    expect_launches(launches["lead_flat"],
+                    dict.fromkeys(LEAD_KERNELS, FIG1_ITERS), "fig1 lead_flat")
+    for name in ("choco", "deepsqueeze", "qdgd"):
+        expect_launches(launches[name], {"quantize_encode": FIG1_ITERS,
+                                         "quantize_decode": FIG1_ITERS},
+                        f"fig1 {name}")
+    for name in ("nids", "dgd"):
+        expect_launches(launches[name], {}, f"fig1 {name}")
+
+    final = {k: t.dist[-1] for k, t in tr.items()}
+    bits = {k: bits_to_reach(t, 1e-6) for k, t in tr.items()}
+    lead = final["lead_tree"]
+    check(lead <= 1e-3 * final["dgd"],
+          f"fig1: tree LEAD dist {lead} > 1e-3 x DGD's {final['dgd']}")
+    check(bits["lead_tree"] <= bits["nids"] / 5,
+          f"fig1: tree LEAD reaches 1e-6 on {bits['lead_tree']} bits, more "
+          f"than 1/5 of NIDS's {bits['nids']}")
+    for name in ("dgd", "choco", "qdgd", "deepsqueeze"):
+        check(final[name] > 1e-2, f"fig1: {name} ends at {final[name]}")
+
+    # the exact runs on the card against the same runs on the CPU (plain
+    # torch), which the CPU tests hold against the JAX reference
+    cpu_prob = LinearRegression.from_arrays(prob.A, prob.b, prob.lam,
+                                            device="cpu")
+    gaps = {name: trace_gap(tr[name], run(algo(name, "cpu"), cpu_prob,
+                                          x_star.cpu(), iters=FIG1_ITERS),
+                            f"fig1: {name}")
+            for name in ("nids", "dgd")}
+    emit({"phase": "fig1", "n": prob.n, "d": prob.d, "iters": FIG1_ITERS,
+          "eta": FIG1_ETA, "final_dist": final, "bits_to_1e-6": bits,
+          "lead_over_dgd": lead / final["dgd"],
+          "nids_bits_over_lead": bits["nids"] / bits["lead_tree"],
+          "consensus": {k: t.consensus[-1] for k, t in tr.items()},
+          "comp_err_last": {k: t.comp_err[-1] for k, t in tr.items()},
+          "launches": {k: {n: c for n, c in v.items() if c}
+                       for k, v in launches.items()},
+          "exact_cuda_vs_cpu": gaps})
+    return launches
+
+
 def phase_baselines_at_scale(dev):
     """CHOCO on each compressed wire at the real size: n = 8 ring, d = 2^25
     per agent, the objective of lead_at_scale, 20 steps through run()."""
@@ -717,6 +946,73 @@ def phase_baselines_at_scale(dev):
     return launches
 
 
+def phase_tree_at_scale(dev):
+    """The tree path at the real size: n = 8 ring, d = 2^25 per agent, the
+    objective of lead_at_scale; tree LEAD (its hypers) and tree CHOCO (eta
+    0.01, the gammas of baselines_at_scale) on each compressed wire, one
+    warm-up step, then 20 steps through run()."""
+    from repro_torch.core import topology
+    from repro_torch.core.baselines import CHOCO_SGD
+    from repro_torch.core.gossip import DenseGossip
+    from repro_torch.core.compression import QuantizePNorm
+    from repro_torch.core.simulator import LEADSim, run
+    from repro_torch.kernels import cuda_lib
+
+    n, d, iters = 8, D_SCALE, 20
+    prob = Quadratic(torch.Generator(dev).manual_seed(0), n, d, dev)
+    gossip = DenseGossip.from_topology(topology.ring(n), dev)
+
+    def algo(name):
+        if name == "lead_pinf_2bit":
+            return LEADSim(gossip=gossip, compressor=QuantizePNorm(bits=2),
+                           engine="tree", eta=0.5, gamma=1.0, alpha=0.5)
+        wire = {"choco_pinf_2bit": "pinf_2bit", "choco_randk_0.1": "randk_0.1",
+                "choco_topk_0.01": "topk_0.01"}[name]
+        return CHOCO_SGD(gossip=gossip, compressor=choco_compressor(wire),
+                         eta=CHOCO_ETA, gamma=CHOCO_WIRES[wire][0])
+
+    launches = {}
+    for name, (kernels, names) in TREE_RUNS.items():
+        alg = algo(name)
+        run(alg, prob, prob.x_star, iters=1)           # warm-up step
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = run(alg, prob, prob.x_star, iters=iters)  # ends in one .cpu()
+        wall = time.perf_counter() - t0
+        launches[name] = cuda_lib.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        what = f"tree_at_scale {name}"
+        expect_launches(launches[name], dict.fromkeys(kernels, iters), what)
+        check(all(np.isfinite(a).all() for a in tr), f"{what}: non-finite")
+        if name.startswith("lead"):
+            check(tr.dist[-1] < 1e-2 * tr.dist[0]
+                  and tr.consensus[-1] < 1e-2 * tr.consensus[0],
+                  f"{what}: dist {tr.dist[0]} -> {tr.dist[-1]}, consensus "
+                  f"{tr.consensus[0]} -> {tr.consensus[-1]}")
+        else:
+            check(tr.dist[-1] < tr.dist[0],
+                  f"{what}: dist {tr.dist[0]} -> {tr.dist[-1]}")
+        breakdown = stage_breakdown(
+            lambda: run(alg, prob, prob.x_star, iters=6), dev,
+            {**TREE_STAGES, **names}, what)
+        emit({"phase": "tree_at_scale", "run": name,
+              "compressor": repr(alg.compressor), "n": n, "d": d,
+              "iters": iters, "ms_per_step": wall * 1e3 / iters,
+              "breakdown_ms": breakdown,
+              "breakdown_total_ms": sum(breakdown.values()),
+              "max_memory_allocated_GB": peak / 1e9,
+              "launches": launches[name],
+              "dist": [tr.dist[0], tr.dist[-1]],
+              "consensus": [tr.consensus[0], tr.consensus[-1]],
+              "bits_per_agent_per_step": tr.bits_per_agent[-1] / iters,
+              "comp_err_last": tr.comp_err[-1]})
+        del alg, tr
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -740,11 +1036,15 @@ def main():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernel_build_s": build_s})
 
+    power_w = float(smi.split(",")[-1].strip().split()[0])
     rows = phase_kernels(dev, bw, flops)
+    phase_blocks(dev, bw, flops, power_w)
     headline = phase_headline(dev)
     fig2 = phase_fig2(dev)
+    fig1 = phase_fig1(dev)
     lead_at_scale = phase_lead_at_scale(dev)
     baselines = phase_baselines_at_scale(dev)
+    tree = phase_tree_at_scale(dev)
     # launches: each kernel's count on its path at the real size (LEAD's for
     # K1-K3, CHOCO's wire for K4-K6), each path run with the counts at 0
     at_scale = {"quantize_encode": baselines["pinf_2bit"],
@@ -756,7 +1056,9 @@ def main():
         r["launches_by_path"] = {
             "lead_at_scale": lead_at_scale[k], "headline": headline[k],
             "fig2": sum(v[k] for v in fig2.values()),
-            **{f"baselines_at_scale/{w}": v[k] for w, v in baselines.items()}}
+            "fig1": sum(v[k] for v in fig1.values()),
+            **{f"baselines_at_scale/{w}": v[k] for w, v in baselines.items()},
+            **{f"tree_at_scale/{w}": v[k] for w, v in tree.items()}}
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

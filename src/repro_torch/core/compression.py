@@ -25,15 +25,35 @@ The kernels carry the wire: the p=inf quantizer encodes with
 ``kernels.sparsify.mask_apply`` (K6).  The p != inf quantizer is plain
 torch, as the reference leaves it to XLA outside Pallas.
 
+Every operator also has the reference's per-agent tree path, over one
+agent's array of any shape (the tree algorithms of core/lead.py and
+core/baselines.py):
+
+    compress(x, **draws)    -> xhat
+    encode(x, **draws)      -> (payload, spec)
+    decode(payload, spec)   -> xhat
+    compress_agents(X, **draws)  the same for a stack of agents (row i of
+                                 X is agent i's array), one kernel pass for
+                                 all of them: the reference's vmapped
+                                 compress
+
+On the card the p=inf quantizer's compress is K4 then K2 on each agent's
+(ceil(size/block), block) block matrix, RandK's is K5, TopK's is K6 on the
+tie-stable exact-k mask; the p != inf quantizer encodes in plain torch.
+
 Randomness.  The reference draws RandK's and the p != inf quantizer's
 uniforms, and approximate TopK's sample indices, from threefry keys, which
 torch cannot reproduce.  So each ``encode_blocks`` here takes its random
 input explicitly: ``u``, a (n, dim) f32 plane of U[0, 1) draws for the
 logical elements (the quantizers and RandK), or ``idx``, the (n, m) int64
 sample indices (approximate TopK).  The flat engines supply them from their
-own counter-hash stream (engines/base.py); the parity tests inject the
-reference's own draws.  The reference's tree-path methods (compress /
-encode / decode) are not ported.
+own counter-hash stream (engines/base.py).  The tree path takes its draws
+(``u``: the quantizer's dither over each agent's block matrix, RandK's
+uniforms over the agent's array; none for TopK and Identity) through one
+replaceable function, ``agent_draws``, which ``compress_each`` calls: the
+counter hash ``fast_uniform`` seeded with the step's seed.  The parity
+tests replace ``agent_draws`` (or the engine's ``_draws``) to inject the
+reference's own draws.
 """
 from __future__ import annotations
 
@@ -45,9 +65,62 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.stage_timer import mark
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels.quantize import DEFAULT_BLOCK
 from repro_torch.kernels.sparsify import mask_apply, randk_encode
+from repro_torch.utils.tree import tree_flatten, tree_unflatten
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mix32(z: int) -> int:
+    """murmur3's 32-bit finalizer, on the host."""
+    z &= _MASK32
+    z ^= z >> 16
+    z = (z * 0x85EBCA6B) & _MASK32
+    z ^= z >> 13
+    z = (z * 0xC2B2AE35) & _MASK32
+    return z ^ (z >> 16)
+
+
+def sub_seed(seed: int, j: int) -> int:
+    """The uint32 seed of substream j of `seed` (a run's iteration j, a
+    pytree's leaf j)."""
+    return _mix32(_mix32(seed) * 0x9E3779B9 + j)
+
+
+def fast_uniform(shape, seed, device: DeviceLike = None) -> torch.Tensor:
+    """Counter-based U[0,1) dither: the murmur3-style integer finalizer of
+    ``src/repro/core/engines/base.py::fast_uniform`` over an iota, keyed by
+    a uint32 seed (an int, or a 0-d integer tensor on the target device).
+    Bit for bit the reference's stream: the uint32 arithmetic runs in int64
+    masked to 32 bits (int64 products wrap modulo 2^64, so their low 32 bits
+    are the uint32 product's).  Updates in place to hold the temporaries
+    to two int64 planes."""
+    m = 1
+    for s in shape:
+        m *= int(s)
+    if isinstance(seed, torch.Tensor):
+        s = seed.to(torch.int64)
+        dev = seed.device
+    else:
+        dev = resolve_device(device)
+        s = torch.full((), int(seed) & _MASK32, dtype=torch.int64, device=dev)
+    z = torch.arange(m, dtype=torch.int64, device=dev)
+    z += (s * 0x9E3779B9) & _MASK32
+    z &= _MASK32
+    z *= 0x85EBCA6B
+    z &= _MASK32
+    z ^= z >> 13
+    z *= 0xC2B2AE35
+    z &= _MASK32
+    z ^= z >> 16
+    z >>= 8
+    # top 24 bits -> [0, 1) with full f32 mantissa coverage
+    u = z.to(torch.float32)
+    del z
+    return u.mul_(1.0 / (1 << 24)).reshape(shape)
 
 
 def rel_err(q: torch.Tensor, target: torch.Tensor,
@@ -108,6 +181,60 @@ def _rows_to_flat(rows: torch.Tensor, like: torch.Tensor,
     return rows.reshape(n, nb, block)
 
 
+def _agent_blocks(rows: torch.Tensor, block: int,
+                  value: float = 0.0) -> torch.Tensor:
+    """(n, m) -> (n * ceil(m/block), block) f32 rows, each agent's vector
+    padded with `value` to whole blocks (a view when there is nothing to
+    pad and rows is contiguous f32)."""
+    n, m = rows.shape
+    nb = _nb_logical(m, block)
+    rows = rows.to(torch.float32)
+    if nb * block > m:
+        rows = F.pad(rows, (0, nb * block - m), value=value)
+    return rows.reshape(n * nb, block)
+
+
+def _agents_back(blocks: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """Inverse of _agent_blocks: (n * nb, block) -> (n, ...) `shape` in
+    `dtype`, the padding dropped."""
+    m = 1
+    for s in shape[1:]:
+        m *= int(s)
+    return blocks.reshape(shape[0], -1)[:, :m].reshape(shape).to(dtype)
+
+
+_SCAN_CHUNK = 1024       # chunk of _first_true's count
+
+
+def _first_true(mask: torch.Tensor, budget: torch.Tensor) -> torch.Tensor:
+    """mask (n, d) bool, budget (n, 1) int -> the first budget[i] True
+    entries of each row i: mask where its running count along the row is
+    at most the budget.
+
+    Without a scan over the row (torch's scan along a few long rows runs
+    on one block per row: 52 ms on 8 rows of 2^25 on an H100): the row is
+    cut into chunks of _SCAN_CHUNK, the chunks whose running total stays
+    within the budget (a prefix) are kept whole, and only the one chunk
+    per row where the budget runs out is scanned."""
+    n, d = mask.shape
+    width = min(_SCAN_CHUNK, d)
+    chunks = -(-d // width)
+    if chunks * width > d:
+        mask = F.pad(mask, (0, chunks * width - d))
+    m = mask.reshape(n, chunks, width)
+    total = m.sum(dim=2, dtype=torch.int32)
+    upto = torch.cumsum(total, dim=1, dtype=torch.int32)
+    whole = upto <= budget
+    keep = m & whole[:, :, None]
+    j = whole.sum(dim=1, keepdim=True).clamp_(max=chunks - 1)
+    at = j[:, :, None].expand(n, 1, width)
+    part = m.gather(1, at)
+    left = budget - (upto.gather(1, j) - total.gather(1, j))
+    part &= torch.cumsum(part, dim=2, dtype=torch.int32) <= left[:, :, None]
+    keep.scatter_(1, at, part)
+    return keep.reshape(n, chunks * width)[:, :d]
+
+
 def _bits(value, device) -> torch.Tensor:
     return torch.full((), float(value), dtype=torch.float32, device=device)
 
@@ -134,6 +261,59 @@ class QuantizePNorm:
         # b bits of code per element + a sign bit + one f32 scale per block
         nb = -(-n_elements // self.block)
         return n_elements * (self.bits + 1) + nb * 32
+
+    # -- tree path ---------------------------------------------------------
+    def draw_shape(self, shape) -> tuple:
+        """Shape of one agent's dither for an array of `shape`: its block
+        matrix (ceil(size/block), block), as the reference draws it."""
+        size = 1
+        for s in shape:
+            size *= int(s)
+        return (_nb_logical(size, self.block), self.block)
+
+    def _encode_agents(self, X: torch.Tensor, u: torch.Tensor):
+        """X: (n, ...) agents, u: (n, nb, block) dither -> code int8
+        (n, nb, block), scale f32 (n, nb, 1): each agent's array flattened
+        and zero-padded to its block matrix (a padded element is zero, so
+        its code is 0 whatever its dither); p=inf encodes with K4."""
+        n = X.shape[0]
+        blocks = _agent_blocks(X.reshape(n, -1), self.block)
+        if _is_inf(self.p):
+            code, scale = _q.encode(blocks, u.reshape(-1, self.block),
+                                    bits=self.bits)
+        else:
+            code, scale = _stochastic_quantize(blocks, u.reshape(
+                -1, self.block), self.bits, self.p)
+        return (code.reshape(n, -1, self.block), scale.reshape(n, -1, 1))
+
+    def _decode_agents(self, code, scale, shape, dtype):
+        """scale * 2^(1-b) * code (K2), back to the agents' `shape`."""
+        rows = _q.decode(code.reshape(-1, self.block), scale.reshape(-1, 1),
+                         bits=self.bits)
+        return _agents_back(rows, shape, dtype)
+
+    def compress_agents(self, X: torch.Tensor, u: torch.Tensor):
+        """Each agent's encode then decode: one K4 and one K2 pass for all
+        agents (p=inf).  X: (n, ...), u: (n, nb, block) U[0, 1)."""
+        code, scale = self._encode_agents(X, u)
+        mark("encode")
+        out = self._decode_agents(code, scale, X.shape, X.dtype)
+        mark("decode")
+        return out
+
+    def compress(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """One agent's xhat; u: (nb, block) U[0, 1) (draw_shape)."""
+        return self.compress_agents(x[None], u[None])[0]
+
+    def encode(self, x: torch.Tensor, u: torch.Tensor):
+        """({"code": (nb, block) int8, "scale": (nb, 1) f32}, spec)."""
+        code, scale = self._encode_agents(x[None], u[None])
+        spec = {"n": x.numel(), "shape": tuple(x.shape), "dtype": x.dtype}
+        return {"code": code[0], "scale": scale[0]}, spec
+
+    def decode(self, payload: dict, spec: dict) -> torch.Tensor:
+        return self._decode_agents(payload["code"], payload["scale"],
+                                   (1,) + spec["shape"], spec["dtype"])[0]
 
     # -- flat-layout wire path -------------------------------------------
     def encode_blocks(self, buf: torch.Tensor, dim: int, u: torch.Tensor):
@@ -183,9 +363,11 @@ class TopK:
     ratio: fraction of entries kept.  Index transmission costs log2(d) bits
     per kept entry (no shared-seed trick possible).
 
-    Exactly k entries are kept: the mask comes from ``torch.topk`` indices
-    (a magnitude threshold `|x| >= kth` would keep every tied entry, sending
-    more than the k values wire_bits charges).
+    Exactly k entries are kept, as ``jax.lax.top_k`` keeps them: every
+    entry above the k-th largest magnitude, and of the entries equal to it
+    the lowest-index ones, up to k in all (a threshold `|x| >= kth` alone
+    would keep every tied entry, sending more than the k values wire_bits
+    charges).  The same on the CPU and the card.
 
     approx_threshold=True switches to a sampled-quantile threshold: each
     agent samples m = sample_per_block * ceil(d/block) of its magnitudes
@@ -214,11 +396,18 @@ class TopK:
         return (u * d).to(torch.int64).clamp_(max=d - 1)
 
     def _mask_rows(self, rows: torch.Tensor) -> torch.Tensor:
-        """(n, d) -> boolean keep-mask with exactly k True per row."""
-        n, d = rows.shape
-        idx = torch.topk(torch.abs(rows), self._k(d), dim=1).indices
-        return torch.zeros((n, d), dtype=torch.bool,
-                           device=rows.device).scatter_(1, idx, True)
+        """(n, d) -> boolean keep-mask with exactly k True per row, ties
+        broken toward the lower index: the k-th largest magnitude t is the
+        threshold, every |x| > t is kept, and of the |x| == t the first
+        k - #(|x| > t) by a running count."""
+        k = self._k(rows.shape[1])
+        a = torch.abs(rows)
+        t = torch.topk(a, k, dim=1, sorted=False).values.amin(
+            dim=1, keepdim=True)
+        above = a > t
+        tie = a == t
+        room = k - above.sum(dim=1, keepdim=True, dtype=torch.int32)
+        return above | _first_true(tie, room)
 
     def _approx_mask_rows(self, rows: torch.Tensor,
                           idx: torch.Tensor) -> torch.Tensor:
@@ -266,6 +455,27 @@ class TopK:
     def decode_blocks(self, payload: dict) -> torch.Tensor:
         return payload["values"]
 
+    # -- tree path ---------------------------------------------------------
+    def compress_agents(self, X: torch.Tensor) -> torch.Tensor:
+        """Each agent's exact top-k of its whole flattened array: the
+        tie-stable mask, applied by one K6 pass for all agents."""
+        n = X.shape[0]
+        rows = X.reshape(n, -1)
+        mask = _agent_blocks(self._mask_rows(rows), DEFAULT_BLOCK)
+        mark("topk_mask")
+        vals = mask_apply(_agent_blocks(rows, DEFAULT_BLOCK), mask)
+        mark("encode")
+        return _agents_back(vals, X.shape, X.dtype)
+
+    def compress(self, x: torch.Tensor) -> torch.Tensor:
+        return self.compress_agents(x[None])[0]
+
+    def encode(self, x: torch.Tensor):
+        return {"dense": self.compress(x)}, {}
+
+    def decode(self, payload: dict, spec: dict) -> torch.Tensor:
+        return payload["dense"]
+
     def variance_constant(self, d_block=None):
         return None  # biased: Assumption 2 does not hold
 
@@ -281,6 +491,32 @@ class RandK:
 
     def wire_bits(self, n_elements: int) -> float:
         return n_elements * self.ratio * 32
+
+    # -- tree path ---------------------------------------------------------
+    def draw_shape(self, shape) -> tuple:
+        """One uniform per element: the reference's bernoulli(key, ratio,
+        x.shape) is uniform(key, x.shape) < ratio."""
+        return tuple(shape)
+
+    def compress_agents(self, X: torch.Tensor, u: torch.Tensor):
+        """x * (1/ratio if rescale) where u < ratio, else 0: one K5 pass
+        for all agents (u padded with 1.0, never kept)."""
+        n = X.shape[0]
+        vals = randk_encode(_agent_blocks(X.reshape(n, -1), DEFAULT_BLOCK),
+                            _agent_blocks(u.reshape(n, -1), DEFAULT_BLOCK,
+                                          value=1.0),
+                            ratio=self.ratio, rescale=self.rescale)
+        mark("encode")
+        return _agents_back(vals, X.shape, X.dtype)
+
+    def compress(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        return self.compress_agents(x[None], u[None])[0]
+
+    def encode(self, x: torch.Tensor, u: torch.Tensor):
+        return {"dense": self.compress(x, u)}, {}
+
+    def decode(self, payload: dict, spec: dict) -> torch.Tensor:
+        return payload["dense"]
 
     # -- flat-layout wire path -------------------------------------------
     def encode_blocks(self, buf: torch.Tensor, dim: int, u: torch.Tensor):
@@ -315,6 +551,19 @@ class Identity:
     def wire_bits(self, n_elements: int) -> float:
         return n_elements * 32
 
+    # -- tree path ---------------------------------------------------------
+    def compress_agents(self, X: torch.Tensor) -> torch.Tensor:
+        return X
+
+    def compress(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def encode(self, x: torch.Tensor):
+        return {"dense": x}, {}
+
+    def decode(self, payload: dict, spec: dict) -> torch.Tensor:
+        return payload["dense"]
+
     # -- flat-layout wire path -------------------------------------------
     def encode_blocks(self, buf: torch.Tensor, dim: int):
         return {"values": buf}, _bits(dim * 32, buf.device)
@@ -324,3 +573,52 @@ class Identity:
 
     def variance_constant(self, d_block=None):
         return 0.0
+
+
+# -- the tree path's draws and its pytree lifting ------------------------------
+
+def agent_draws(comp, X: torch.Tensor, seed: int) -> dict:
+    """The random input of ``comp.compress_agents(X, ...)``: for a
+    compressor with a ``draw_shape`` (the quantizers, RandK), ``u``, U[0, 1)
+    of shape (n, *draw_shape(agent array shape)) from the counter hash
+    seeded `seed`, on X's device; nothing for TopK and Identity.  The one
+    place the tree path draws: the parity tests replace it to hand the
+    port the reference's draws."""
+    draw_shape = getattr(comp, "draw_shape", None)
+    if draw_shape is None:
+        return {}
+    shape = (X.shape[0],) + tuple(draw_shape(X.shape[1:]))
+    u = fast_uniform(shape, seed, device=X.device)
+    mark("dither")
+    return {"u": u}
+
+
+def compress_each(comp, seed: int, X: torch.Tensor) -> torch.Tensor:
+    """Per-agent compression: row i of X (n, ...) is agent i's array.  The
+    reference's vmapped compress, one pass per kernel for all agents, with
+    the draws of ``agent_draws`` for `seed`."""
+    return comp.compress_agents(X, **agent_draws(comp, X, seed))
+
+
+def compress_pytree(compressor, seed: int, tree):
+    """Apply a compressor leaf-wise to a pytree, leaf j seeded with
+    sub_seed(seed, j)."""
+    leaves, treedef = tree_flatten(tree)
+    out = [compress_each(compressor, sub_seed(seed, j), leaf[None])[0]
+           for j, leaf in enumerate(leaves)]
+    return tree_unflatten(treedef, out)
+
+
+def estimate_C(compressor, seed: int = 0, d: int = 4096, trials: int = 64,
+               device: DeviceLike = None) -> float:
+    """Monte-Carlo estimate of the contraction constant C (Assumption 2):
+    the largest ||x - Q(x)||^2 / ||x||^2 over `trials` standard normal
+    vectors of dimension d, drawn from a torch.Generator seeded `seed`, all
+    compressed in one compress_each."""
+    dev = resolve_device(device)
+    gen = torch.Generator(dev).manual_seed(seed)
+    X = torch.randn((trials, d), generator=gen, dtype=torch.float32,
+                    device=dev)
+    Xh = compress_each(compressor, sub_seed(seed, 1), X)
+    vals = torch.sum((X - Xh) ** 2, dim=1) / torch.sum(X ** 2, dim=1)
+    return float(torch.max(vals))

@@ -10,10 +10,13 @@
 ``engine_for`` is the registry front door: it dispatches
 ``(algorithm, compressor, topology)`` to the matching engine.  Every name
 and alias of the reference's registry is registered except CEDAS and C-GT
-(``cedas``, ``cgt``, ``c-gt``), which are not ported yet, nor is
-``flat_twin`` (the tree baselines are not ported).
+(``cedas``, ``cgt``, ``c-gt``), which are not ported yet.  ``flat_twin``
+builds the flat engine that mirrors a tree algorithm (core/baselines.py,
+or LEADSim).
 """
 from __future__ import annotations
+
+import dataclasses
 
 from repro_torch.core.compression import Identity
 from repro_torch.core.engines.base import FlatEngineBase, fast_uniform
@@ -87,7 +90,8 @@ def engine_for(topology, compressor, dim: int, dither: str = "fast",
 
     `topology` is a core/topology.Topology or a raw mixing matrix; `gossip`
     selects "dense" (W @ q) or "neighbor" (sparse gather over the
-    topology's table).  Identity normalizes to None (the raw 32-bit wire);
+    topology's table; "ring" is the same gather, for the uniform ring
+    only).  Identity normalizes to None (the raw 32-bit wire);
     every other compressor runs on every compressed algorithm: the p=inf
     QuantizePNorm through the fused kernels, RandK, TopK and p != inf
     quantizers through their encode_blocks wire.  An object without that
@@ -112,9 +116,51 @@ def engine_for(topology, compressor, dim: int, dither: str = "fast",
                gossip=gossip, dither=dither, device=device, **hyper)
 
 
+# tree algorithm class name -> registry key of its flat twin
+_TREE_TWINS = {
+    "CHOCO_SGD": "choco",
+    "DeepSqueeze": "deepsqueeze",
+    "QDGD": "qdgd",
+    "DCD_SGD": "dcd",
+    "DGD": "dgd",
+    "NIDS": "nids",
+    "EXTRA": "extra",
+    "D2": "d2",
+    "LEADSim": "lead",
+}
+
+
+def flat_twin(algo, dim: int, *, gossip: str = "dense",
+              device: DeviceLike = None) -> FlatEngineBase:
+    """Flat engine mirroring a tree algorithm instance (a baseline of
+    core/baselines.py, or LEADSim): same mixing matrix, compressor and
+    hyper-parameters, ready to hand to core/simulator.py run() in its
+    place.  It lives on `device`, by default the algorithm's own (its
+    DenseGossip's, or LEADSim's device)."""
+    name = type(algo).__name__
+    if name not in _TREE_TWINS:
+        raise KeyError(f"no flat twin registered for {name}; registry has "
+                       f"{sorted(_TREE_TWINS)}")
+    cls = ENGINES[_TREE_TWINS[name]]
+    fields = {f.name for f in dataclasses.fields(cls)}
+    hyper = {k: getattr(algo, k) for k in ("eta", "gamma", "alpha")
+             if k in fields and hasattr(algo, k)}
+    dense = getattr(algo, "gossip", None)
+    if getattr(algo, "topology", None) is not None:
+        topo = algo.topology
+    else:
+        topo = dense.W.cpu().numpy()
+    if device is None:
+        device = (dense.W.device if dense is not None
+                  else getattr(algo, "device", None))
+    return engine_for(topo, getattr(algo, "compressor", None), dim,
+                      gossip=gossip, algorithm=_TREE_TWINS[name],
+                      device=device, **hyper)
+
+
 __all__ = ["ENGINES", "ExtraState", "FlatCHOCOEngine", "FlatD2Engine",
            "FlatDCDEngine", "FlatDGDEngine", "FlatDeepSqueezeEngine",
            "FlatEXTRAEngine", "FlatEngineBase", "FlatLEADEngine",
            "FlatLEADState", "FlatNIDSEngine", "FlatQDGDEngine", "SimpleState",
            "algorithm_name", "describe", "engine_for", "fast_uniform",
-           "is_exact"]
+           "flat_twin", "is_exact"]

@@ -21,9 +21,11 @@ what the family shares:
   * gossip  - ``mix_payload``: the payload is decoded ONCE, then mixed
               densely (``gossip="dense"``, W @ q) or by the sparse
               neighbor gather (``gossip="neighbor"``) over the engine's
-              Topology.
-  * dither  - the U[0, 1) planes from ``fast_uniform``, the reference's
-              counter hash reproduced bit for bit.
+              Topology; ``gossip="ring"`` is the reference's alias for the
+              neighbor gather that also requires the uniform ring.
+  * dither  - the U[0, 1) planes from ``fast_uniform`` (defined in
+              core/compression.py), the reference's counter hash
+              reproduced bit for bit.
 
 Every engine's iteration is the same three-beat bar (``_step_core``):
 
@@ -52,12 +54,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, ClassVar, Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import topology as topology_mod
 from repro_torch.core.compression import (Identity, QuantizePNorm, TopK,
-                                          _is_inf)
+                                          _is_inf, fast_uniform)
 from repro_torch.core.gossip import DenseGossip, EncodedNeighborGossip
 from repro_torch.core.lead import _at
 from repro_torch.core.stage_timer import mark
@@ -74,39 +77,6 @@ def _is_fused_quantizer(comp) -> bool:
     return isinstance(comp, QuantizePNorm) and _is_inf(comp.p)
 
 
-def fast_uniform(shape, seed, device: DeviceLike = None) -> torch.Tensor:
-    """Counter-based U[0,1) dither: the murmur3-style integer finalizer of
-    ``src/repro/core/engines/base.py::fast_uniform`` over an iota, keyed by
-    a uint32 seed (an int, or a 0-d integer tensor on the target device).
-    Bit for bit the reference's stream: the uint32 arithmetic runs in int64
-    masked to 32 bits (int64 products wrap modulo 2^64, so their low 32 bits
-    are the uint32 product's).  Updates in place to hold the temporaries
-    to two int64 planes."""
-    m = 1
-    for s in shape:
-        m *= int(s)
-    if isinstance(seed, torch.Tensor):
-        s = seed.to(torch.int64)
-        dev = seed.device
-    else:
-        dev = resolve_device(device)
-        s = torch.full((), int(seed) & _MASK32, dtype=torch.int64, device=dev)
-    z = torch.arange(m, dtype=torch.int64, device=dev)
-    z += (s * 0x9E3779B9) & _MASK32
-    z &= _MASK32
-    z *= 0x85EBCA6B
-    z &= _MASK32
-    z ^= z >> 13
-    z *= 0xC2B2AE35
-    z &= _MASK32
-    z ^= z >> 16
-    z >>= 8
-    # top 24 bits -> [0, 1) with full f32 mantissa coverage
-    u = z.to(torch.float32)
-    del z
-    return u.mul_(1.0 / (1 << 24)).reshape(shape)
-
-
 _LATER = ("not ported yet (ROADMAP.md, 'Modules still to port')")
 
 
@@ -118,7 +88,9 @@ class FlatEngineBase:
     and normalized).  compressor=None (or Identity) means no encode stage:
     the raw message buffer is the payload (d * 32 bits on the wire).  The
     payload is decoded once per step; gossip="dense" mixes W @ q,
-    gossip="neighbor" runs the sparse neighbor gather.  device is where the
+    gossip="neighbor" runs the sparse neighbor gather, and gossip="ring"
+    is the same gather on the static uniform ring only (any other
+    topology raises ValueError).  device is where the
     state lives ("cuda" when None); the topology's tables are copied there
     once, here.
 
@@ -132,7 +104,7 @@ class FlatEngineBase:
     dim: int                           # logical per-agent dimension d
     compressor: Any = None             # None -> Identity (no encode stage)
     block: int = DEFAULT_BLOCK
-    gossip: str = "dense"              # "dense" | "neighbor"
+    gossip: str = "dense"              # "dense" | "neighbor" | "ring" alias
     dither: str = "fast"               # the counter-hash dither stream
     device: DeviceLike = None          # None -> "cuda"
 
@@ -145,9 +117,14 @@ class FlatEngineBase:
         object.__setattr__(self, "device", resolve_device(self.device))
         if self.gossip == "hier":
             raise NotImplementedError(f"gossip='hier' is {_LATER}")
-        if self.gossip not in ("dense", "neighbor"):
-            raise ValueError(f"gossip must be 'dense' or 'neighbor', got "
-                             f"{self.gossip!r}")
+        if self.gossip not in ("dense", "neighbor", "ring"):
+            raise ValueError(f"gossip must be 'dense', 'neighbor' or 'ring', "
+                             f"got {self.gossip!r}")
+        if self.gossip == "ring" and not np.allclose(
+                self.topology.W, topology_mod.ring(self.n).W, atol=1e-6):
+            raise ValueError("gossip='ring' requires the uniform ring mixing "
+                             "matrix (use gossip='neighbor' for arbitrary "
+                             "topologies)")
         if self.dither == "match":
             raise NotImplementedError(
                 "dither='match' reproduces the reference's per-agent threefry "
@@ -160,7 +137,7 @@ class FlatEngineBase:
             self.topology, self.device))
         object.__setattr__(self, "_neighbor", (
             EncodedNeighborGossip.from_topology(self.topology, self.device)
-            if self.gossip == "neighbor" else None))
+            if self.gossip != "dense" else None))
 
     @property
     def n(self) -> int:

@@ -1,6 +1,7 @@
 """Gossip (decentralized mixing) backends over the leading agent axis.
 
-* DenseGossip - explicit mixing-matrix multiply, W @ X.
+* DenseGossip - explicit mixing-matrix multiply, W @ X, leaf-wise over a
+  pytree (the tree path's ``mix`` and ``i_minus_w``).
 * EncodedNeighborGossip - sparse neighbor exchange, built from a Topology's
   padded ``neighbors``/``weights`` table: each agent combines its own
   decoded payload with a gather of its neighbors' - O(n * deg * d) where the
@@ -9,9 +10,15 @@
   engine decodes before the (virtual) exchange and hands the one decoded
   copy to ``mix``.
 
-Both hold their tables as tensors on one device, copied there once at
-construction.  The masked (fault) and time-varying (bank) forms and the
-hierarchical backend are not ported yet.
+* EncodedRingGossip - the uniform-ring special case of
+  EncodedNeighborGossip, kept for its (w_self, w_neighbor) reading API:
+  decode once, then roll the decoded buffer to the ring neighbours.
+
+DenseGossip and EncodedNeighborGossip hold their tables as tensors on one
+device, copied there once at construction.  The masked (fault) and
+time-varying (bank) forms and the hierarchical backend are not ported yet,
+nor is ``RingGossip``, the reference's collective-permute ring over a mesh
+axis (it belongs with the torch.distributed trainer).
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.utils.tree import Pytree, tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,10 +47,18 @@ class DenseGossip:
     def n(self) -> int:
         return self.W.shape[0]
 
-    def mix(self, x: torch.Tensor) -> torch.Tensor:
-        """W @ x, flattened to one 2-D matmul over the trailing axes."""
-        n = x.shape[0]
-        return (self.W.to(x.dtype) @ x.reshape(n, -1)).reshape(x.shape)
+    def mix(self, tree: Pytree) -> Pytree:
+        """W @ x for every leaf x, each flattened to one 2-D matmul over
+        its trailing axes."""
+        def one(x):
+            n = x.shape[0]
+            return (self.W.to(x.dtype) @ x.reshape(n, -1)).reshape(x.shape)
+
+        return tree_map(one, tree)
+
+    def i_minus_w(self, tree: Pytree) -> Pytree:
+        """(I - W) x, leaf-wise."""
+        return tree_map(torch.subtract, tree, self.mix(tree))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,3 +90,47 @@ class EncodedNeighborGossip:
         for j in range(self.neighbors.shape[1]):
             out = out + w[:, 1 + j].reshape(shape) * x[self.neighbors[:, j]]
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class EncodedRingGossip:
+    """Uniform-ring special case of EncodedNeighborGossip: the compact
+    (w_self, w_neighbor) API for ring-only drivers and tests.
+
+    ``mix_encoded`` decodes the payload once and rolls the decoded buffer
+    to the two ring neighbours (one for n == 2, none for n == 1): rolling
+    commutes with per-agent decode."""
+    w_self: float = 1.0 / 3.0
+    w_neighbor: float = 1.0 / 3.0
+
+    @staticmethod
+    def weights_from(W) -> "EncodedRingGossip":
+        """Read (w_self, w_neighbor) off a uniform ring mixing matrix (a
+        Topology, an array or a CPU tensor)."""
+        Wn = np.asarray(getattr(W, "W", W))
+        return EncodedRingGossip(w_self=float(Wn[0, 0]),
+                                 w_neighbor=float(Wn[0, 1 % Wn.shape[0]]))
+
+    def shift(self, tree: Pytree, direction: int) -> Pytree:
+        """Roll every leaf by one agent along the ring."""
+        return tree_map(lambda a: torch.roll(a, -direction, dims=0), tree)
+
+    def mix_encoded(self, payload: Pytree, decode) -> Pytree:
+        """w_self * own + w_neighbor * (right + left) on the decoded buffer.
+
+        Degenerate rings (topology.ring): n == 2 has one neighbour (both
+        shifts would deliver the same agent; summing them double-counts),
+        n == 1 has none."""
+        n = tree_leaves(payload)[0].shape[0]
+        own = decode(payload)
+        if n == 1:
+            return own
+        right = self.shift(own, +1)
+        if n == 2:
+            return tree_map(
+                lambda o, r: self.w_self * o + self.w_neighbor * r,
+                own, right)
+        left = self.shift(own, -1)
+        return tree_map(
+            lambda o, r, l: self.w_self * o + self.w_neighbor * (r + l),
+            own, right, left)

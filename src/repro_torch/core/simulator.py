@@ -1,8 +1,8 @@
 """Single-device decentralized-training simulator.
 
-Runs an algorithm (LEAD via LEADSim, or any flat engine from core/engines:
-the baselines are driven directly) on an objective from core/convex.py,
-recording the paper's metrics per iteration:
+Runs an algorithm (LEAD via LEADSim, any flat engine from core/engines, or
+a tree algorithm from core/baselines.py) on an objective from
+core/convex.py, recording the paper's metrics per iteration:
 
     dist:      (1/n) sum ||x_i - x*||^2          (Fig. 1a, 2a, 3a)
     consensus: (1/n) sum ||x_i - xbar||^2        (Fig. 1c)
@@ -12,43 +12,63 @@ recording the paper's metrics per iteration:
 
 The reference's ``lax.scan`` becomes a Python loop over device work: every
 metric is written into a preallocated device tensor and the trace crosses
-to the host once, at the end - no per-step host sync.  The stochastic and
-noisy gradient oracles, fault injection and the tree engine are not ported
-yet.
+to the host once, at the end - no per-step host sync.
+
+LEADSim runs LEAD on one of two paths: engine="tree", the reference's
+pytree path (core/lead.py over a DenseGossip and the per-agent compress
+``vmap_compress``: the difference in plain torch, then the compressor's
+own compress), or engine="flat", the fused flat-buffer engine
+(core/engines/lead.py).  The stochastic and noisy gradient oracles and
+fault injection are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Optional
+import functools
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import lead as lead_mod
 from repro_torch.core import topology as topology_mod
+from repro_torch.core.compression import compress_each, sub_seed
 from repro_torch.core.convex import consensus_error, distance_to_opt
 from repro_torch.core.engines import FlatLEADState, engine_for
 from repro_torch.core.engines.base import FlatEngineBase
+from repro_torch.core.gossip import DenseGossip
 from repro_torch.core.lead import LEADHyper
 from repro_torch.core.stage_timer import mark
 from repro_torch.device import DeviceLike
 
-_MASK32 = 0xFFFFFFFF
 _LATER = "is not ported yet (ROADMAP.md, 'Modules still to port')"
+
+
+def vmap_compress(compressor) -> Callable:
+    """Per-agent compression: row i of an (n, ...) tensor is agent i's
+    array; fn(seed, X) compresses every row with the step's draws
+    (core/compression.compress_each)."""
+    def fn(seed, X):
+        return compress_each(compressor, seed, X)
+    return fn
 
 
 @dataclasses.dataclass(frozen=True)
 class LEADSim:
-    """init/step adapter making LEAD interface-compatible with the flat
+    """init/step adapter making LEAD interface-compatible with the
     baselines.
 
-    ``topology`` is the communication graph: a core/topology.Topology or a
-    raw mixing matrix.  engine="flat" drives the fused flat-buffer engine
-    (core/engines/lead.py); the reference's pytree path (engine="tree") and
-    its legacy ``gossip=`` form are not ported yet.  engine_gossip selects
-    the flat engine's communication stage: "dense" or "neighbor".  dim and
-    device are bound by run() from the problem when left None.
+    The communication graph comes from either ``topology`` (a
+    core/topology.Topology or a raw mixing matrix) or the legacy ``gossip``
+    (a DenseGossip); give exactly one.  engine="flat" drives the fused
+    flat-buffer engine (core/engines/lead.py); engine="tree" the
+    reference's pytree path (core/lead.py), which needs a compressor
+    (Identity for an uncompressed wire).  engine_gossip selects the flat
+    engine's communication stage: "dense", "neighbor" or "ring".  dim and
+    device are bound by run() from the problem when left None; with
+    ``gossip=`` the device defaults to its W's.
     """
-    topology: Any
+    topology: Any = None
     compressor: Any = None
     eta: Any = 0.1
     gamma: Any = 1.0
@@ -59,22 +79,49 @@ class LEADSim:
     dim: Optional[int] = None
     faults: Any = None
     device: DeviceLike = None
+    gossip: Optional[DenseGossip] = None
 
     def __post_init__(self):
-        if self.engine == "tree":
-            raise NotImplementedError(f"LEADSim(engine='tree') {_LATER}")
-        if self.engine != "flat":
-            raise ValueError(f"engine must be 'flat', got {self.engine!r}")
+        if self.engine not in ("tree", "flat"):
+            raise ValueError(f"engine must be 'tree' or 'flat', got "
+                             f"{self.engine!r}")
         if self.faults is not None:
             raise NotImplementedError(f"fault injection {_LATER}")
+        if (self.gossip is None) == (self.topology is None):
+            raise ValueError("give exactly one of gossip= (DenseGossip) or "
+                             "topology=")
+        # fail at construction, not inside a step: the tree path
+        # dereferences the compressor (vmap_compress / wire_bits)
+        if self.engine == "tree" and self.compressor is None:
+            raise ValueError("LEADSim(engine='tree') needs a compressor; pass "
+                             "compression.Identity() for an uncompressed "
+                             "wire")
+        if self.gossip is not None and self.device is None:
+            object.__setattr__(self, "device", self.gossip.W.device)
         object.__setattr__(self, "_engines", {})
+
+    @property
+    def _topology(self):
+        """The static Topology (a sequence of round graphs, a time-varying
+        bank, raises: banks are not ported)."""
+        if self.topology is not None:
+            return topology_mod.materialize(self.topology)
+        return topology_mod.as_topology(self.gossip.W.cpu().numpy())
+
+    @functools.cached_property
+    def _gossip(self) -> DenseGossip:
+        """The tree path's dense mixing backend: the given DenseGossip, or
+        one built once off the topology on the device."""
+        if self.gossip is not None:
+            return self.gossip
+        return DenseGossip.from_topology(self._topology, self.device)
 
     def _flat_engine(self, dim: int):
         """The engine for `dim`, built once (its graph tables are copied to
         the device at construction)."""
         if dim not in self._engines:
             self._engines[dim] = engine_for(
-                self.topology, self.compressor, dim, dither=self.dither,
+                self._topology, self.compressor, dim, dither=self.dither,
                 gossip=self.engine_gossip, device=self.device, eta=self.eta,
                 gamma=self.gamma, alpha=self.alpha)
         return self._engines[dim]
@@ -91,20 +138,36 @@ class LEADSim:
                              "need LEADSim(dim=...)")
         return g.shape[1]
 
-    def init(self, x0, g0, key=None):
+    def init(self, x0, g0, seed=None):
+        if self.engine == "tree":
+            return lead_mod.init(x0, g0, self.hyper, self._gossip.mix, h0=x0)
         return self._flat_engine(self._dim_of(x0)).init(x0, g0, self.hyper)
 
     def step_with_wire(self, state, g, seed: int):
         """(new_state, comp_err, wire_bits) of one LEAD iteration; wire_bits
-        is the per-agent bits this step put on the wire."""
+        is the per-agent bits this step put on the wire: from the actual
+        payload on the flat engine, the compressor's static wire_bits(d) on
+        the tree path (which never forms a payload)."""
+        if self.engine == "tree":
+            new, cerr = lead_mod.step_with_metrics(
+                state, g, seed, self.hyper, self._gossip.mix,
+                vmap_compress(self.compressor))
+            bits = torch.full((), float(self.compressor.wire_bits(
+                g.shape[1])), dtype=torch.float32, device=g.device)
+            return new, cerr, bits
         return self._flat_engine(self._dim_of(g)).step_wire(state, g, seed,
                                                             self.hyper)
+
+    def step_with_metrics(self, state, g, seed: int):
+        """(new_state, comp_err) with comp_err = ||Qh-(Y-H)||/||Y||, the
+        error this iteration incurred."""
+        return self.step_with_wire(state, g, seed)[:2]
 
     def step(self, state, g, seed: int):
         return self.step_with_wire(state, g, seed)[0]
 
     def x_of(self, state):
-        """Current iterates as (n, d)."""
+        """Current iterates as (n, d) on either path."""
         if isinstance(state, FlatLEADState):
             if self.dim is None:
                 raise ValueError("LEADSim needs dim=<per-agent d> to "
@@ -114,12 +177,17 @@ class LEADSim:
 
 
 def with_topology(algo, topology):
-    """`algo` rebound to a new (static) communication graph."""
+    """`algo` rebound to a new (static) communication graph: flat engines
+    and LEADSim get the Topology itself, tree baselines a DenseGossip over
+    its W on their device."""
     topo = topology_mod.materialize(topology)
     if isinstance(algo, LEADSim):
-        return dataclasses.replace(algo, topology=topo)
+        return dataclasses.replace(algo, gossip=None, topology=topo)
     if isinstance(algo, FlatEngineBase):
         return dataclasses.replace(algo, topology=topo)
+    if isinstance(getattr(algo, "gossip", None), DenseGossip):
+        return dataclasses.replace(algo, gossip=DenseGossip.from_topology(
+            topo, algo.gossip.W.device))
     raise TypeError(f"cannot rebind topology on {type(algo).__name__}")
 
 
@@ -127,10 +195,18 @@ class Trace(NamedTuple):
     """Host-side metric traces, one entry per recorded iteration.
 
     comp_err is ``||Q(m) - m|| / ||Y||`` where ``m`` is the message the
-    algorithm transmitted this iteration (LEAD: the difference Y - H) and
-    ``Y`` the pre-communication iterate that carries it.  bits_per_agent is
-    the cumulative bits each agent has put on the wire up to and including
-    the iteration, accumulated from the actual per-step payloads.
+    algorithm transmitted this iteration (LEAD: the difference Y - H;
+    CHOCO: x_half - xhat; DeepSqueeze: the error-compensated
+    v = x - eta g + e; QDGD: x; DCD: the post-gossip x - xhat) and ``Y``
+    the pre-communication iterate that carries it.  Every LEAD path, flat
+    engine and compressed tree baseline records it from inside the step;
+    only algorithms without step metrics fall back to the
+    ``_compression_error`` re-compression estimate.
+
+    bits_per_agent is the cumulative bits each agent has put on the wire
+    up to and including the iteration: the actual per-step payloads on
+    the flat engines, the compressor's static ``wire_bits(d)`` per
+    iteration on the tree paths.
     """
     dist: np.ndarray
     consensus: np.ndarray
@@ -139,31 +215,20 @@ class Trace(NamedTuple):
     comp_err: np.ndarray
 
 
-def _mix32(z: int) -> int:
-    """murmur3's 32-bit finalizer, on the host."""
-    z &= _MASK32
-    z ^= z >> 16
-    z = (z * 0x85EBCA6B) & _MASK32
-    z ^= z >> 13
-    z = (z * 0xC2B2AE35) & _MASK32
-    return z ^ (z >> 16)
-
-
-def step_seed(seed: int, it: int) -> int:
-    """The uint32 dither seed of iteration `it` of a run seeded `seed`."""
-    return _mix32(_mix32(seed) * 0x9E3779B9 + it)
-
-
 def run(algo, problem, x_star, *, iters=300, seed: int = 0, stochastic=False,
         noise_std=0.0, record_every=1, topology=None) -> Trace:
     """Run `algo` on `problem` from x0 = 0; returns metric traces (host
     numpy).  The run lives on x_star's device.
 
     topology= swaps the algorithm's communication graph before running.
-    Each iteration's dither seed is derived from `seed` and the iteration
-    (step_seed), so a quantized trace matches the reference's in
-    distribution, not bit for bit: the reference draws its seeds from its
+    Iteration `it` draws with sub_seed(seed, it), so a compressed trace matches the reference's in
+    distribution, not bit for bit: the reference draws its keys from its
     jax.random key stream.  An uncompressed trace matches it to rounding.
+
+    The algorithm's own protocol decides what a step reports, as in the
+    reference: step_with_wire gives the actual wire bits; step_with_metrics
+    the in-step comp_err, with the compressor's static wire_bits(d) per
+    step; a bare step the ``_compression_error`` estimate.
 
     Metrics are written into a preallocated device tensor and cross to the
     host once, at the end.  With record_every > 1 the metric reductions of
@@ -179,17 +244,31 @@ def run(algo, problem, x_star, *, iters=300, seed: int = 0, stochastic=False,
     if topology is not None:
         algo = with_topology(algo, topology)
     if isinstance(algo, LEADSim) and (algo.dim is None or algo.device is None):
-        algo = dataclasses.replace(algo, dim=d, device=dev)
+        algo = dataclasses.replace(algo, dim=d, device=algo.device or dev)
 
     state = algo.init(x0, problem.full_grad(x0))
     x_of = getattr(algo, "x_of", lambda s: s.x)
+    comp = getattr(algo, "compressor", None)
+    static_bits = torch.full((), float(comp.wire_bits(d) if comp is not None
+                                       else d * 32),
+                             dtype=torch.float32, device=dev)
+    step_with_wire = getattr(algo, "step_with_wire", None)
+    step_with_metrics = getattr(algo, "step_with_metrics", None)
 
     ms = torch.zeros((5, iters), dtype=torch.float32, device=dev)
     bits_acc = torch.zeros((), dtype=torch.float32, device=dev)
     for it in range(iters):
         g = problem.full_grad(x_of(state))
         mark("gradient")
-        new, cerr, bits = algo.step_with_wire(state, g, step_seed(seed, it))
+        s = sub_seed(seed, it)
+        if step_with_wire is not None:
+            new, cerr, bits = step_with_wire(state, g, s)
+        elif step_with_metrics is not None:
+            (new, cerr), bits = step_with_metrics(state, g, s), static_bits
+        else:
+            new = algo.step(state, g, s)
+            cerr = _compression_error(algo, state, problem, s)
+            bits = static_bits
         bits_acc = bits_acc + bits
         if it % record_every == 0:
             X = x_of(new)
@@ -206,3 +285,31 @@ def run(algo, problem, x_star, *, iters=300, seed: int = 0, stochastic=False,
     sel = slice(0, iters, record_every)
     return Trace(dist=dist[sel], consensus=cons[sel], loss=loss[sel],
                  bits_per_agent=bits[sel], comp_err=cerr[sel])
+
+
+def _compression_error(algo, state, problem, seed: int) -> torch.Tensor:
+    """Fallback estimate of the Trace comp_err for algorithms without step
+    metrics: re-compress the transmitted message of the pre-step state with
+    the step's seed.
+
+    The target is the quantity the algorithm puts on the wire:
+    error-compensated algorithms (an ``e`` field) transmit
+    v = x - eta g + e; hat-tracking algorithms (an ``xhat`` field) a
+    difference against their public copies; direct-compression algorithms
+    x."""
+    comp = getattr(algo, "compressor", None)
+    if comp is None:
+        return torch.zeros((), dtype=torch.float32, device=state.x.device)
+    if hasattr(state, "e"):
+        eta = lead_mod._at(getattr(algo, "eta", 0.0), state.k)
+        target = state.x - eta * problem.full_grad(state.x) + state.e
+        ref = target
+    elif hasattr(state, "xhat"):
+        target = state.x - state.xhat
+        ref = state.x
+    else:
+        target = state.x
+        ref = state.x
+    q = compress_each(comp, seed, target)
+    return (torch.linalg.vector_norm((q - target).reshape(-1))
+            / (torch.linalg.vector_norm(ref.reshape(-1)) + 1e-12))

@@ -24,6 +24,10 @@ cached properties:
     beta    = lambda_max(I - W)
     kappa_g = lambda_max(I - W) / lambda_min^+(I - W)
 
+The module-level ``spectral_gap``, ``beta``, ``lambda_min_plus``,
+``kappa_g``, ``check_mixing`` and ``check_doubly_stochastic`` take a
+Topology or a raw matrix (a raw matrix is not validated first).
+
 Not ported yet (ROADMAP "Modules still to port", robustness and topology
 layers): time-varying schedules and ``TopologyBank``, ``hierarchical``
 graphs and the communication interval.  They raise NotImplementedError.
@@ -284,6 +288,49 @@ def metropolis_matrix(adj: np.ndarray) -> np.ndarray:
 def metropolis(adj: np.ndarray) -> Topology:
     """Topology with Metropolis-Hastings weights for an adjacency matrix."""
     return _build("metropolis", metropolis_matrix(adj))
+
+
+# -- spectral quantities on raw matrices or Topologies -----------------------
+# thin wrappers over the cached Topology properties; a raw matrix is wrapped
+# without Assumption-1 validation, as in the reference
+
+def _topo_of(W) -> Topology:
+    return W if isinstance(W, Topology) else _build("matrix", np.asarray(W))
+
+
+def spectral_gap(W) -> float:
+    return _topo_of(W).spectral_gap
+
+
+def beta(W) -> float:
+    """lambda_max(I - W)."""
+    return _topo_of(W).beta
+
+
+def lambda_min_plus(W) -> float:
+    """Smallest nonzero eigenvalue of I - W."""
+    return _topo_of(W).lambda_min_plus
+
+
+def kappa_g(W) -> float:
+    return _topo_of(W).kappa_g
+
+
+def check_doubly_stochastic(W, atol: float = 1e-8) -> None:
+    """Assumption 1 minus symmetry and connectivity: square, nonnegative,
+    rows and columns sum to 1; raises ValueError on violation."""
+    W = np.asarray(W)
+    n = W.shape[0]
+    checks = [
+        (W.shape == (n, n), "W must be square"),
+        (np.all(W >= -atol), "W must be nonnegative"),
+        (np.allclose(W.sum(axis=1), 1.0, atol=atol), "rows must sum to 1"),
+        (np.allclose(W.sum(axis=0), 1.0, atol=atol),
+         "columns must sum to 1"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise ValueError(msg)
 
 
 def check_mixing(W, atol: float = 1e-8) -> None:

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) kernels for LEAD's main path: the fused pre-communication
 // pass (K1), the receiver's decode (K2) and the fused post-communication
-// state update (K3).  Every kernel works row-wise on f32 (rows, 512) planes,
-// rows = n_agents * nb, in the layout of the flat engine.
+// state update (K3).  Every kernel works row-wise on f32 (rows, block)
+// planes, rows = n_agents * nb, in the layout of the flat engine; block is
+// the paper's 512 on the hot path and any width >= 1 otherwise.
 //
 // Built with wire_kernels.cu into one shared library with a plain C
 // interface by repro_torch/kernels/cuda_lib.py (nvcc -gencode
@@ -79,14 +80,51 @@ lead_diff_encode_kernel(const float* __restrict__ x,
   quantize_row(diff, u, code, scale, row, base4, lane, bits);
 }
 
+// K1 at any other block width: the same warp per row, through
+// quantize_row_any(), which evaluates the difference once per pass with the
+// same rounded sequence (so both passes see the same bits) instead of
+// holding it in registers.  Each plane is read twice; the second read of a
+// row mostly hits L1/L2.
+struct DiffValues {
+  const float* __restrict__ x;
+  const float* __restrict__ g;
+  const float* __restrict__ d;
+  const float* __restrict__ h;
+  float eta;
+  __device__ __forceinline__ float operator()(long long i) const {
+    return lead_diff(__ldg(x + i), __ldg(g + i), __ldg(d + i), __ldg(h + i),
+                     eta);
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+lead_diff_encode_any_kernel(const float* __restrict__ x,
+                            const float* __restrict__ g,
+                            const float* __restrict__ d,
+                            const float* __restrict__ h,
+                            const float* __restrict__ u,
+                            const float* __restrict__ eta_p,
+                            signed char* __restrict__ code,
+                            float* __restrict__ scale, long long rows,
+                            long long block, int bits) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kRowsPerCta + (threadIdx.x >> 5);
+  if (row >= rows) return;                  // whole warps exit together
+  const DiffValues diff{x, g, d, h, __ldg(eta_p)};
+  quantize_row_any(diff, u, code, scale, row, block, lane, bits);
+}
+
 // ---------------------------------------------------------------------------
 // K2 quantize decode.  Replaces src/repro/kernels/quantize.py::decode
 // (_decode_kernel).  Bound: bytes.  Reads one int8 code (1 B) and writes one
 // f32 (4 B) per element, plus one f32 scale per row: 5 B/element + 4 B/row.
 // Design: a grid-stride pass of 4 elements per thread (char4 in, float4
-// out, both coalesced); the row's scale is a broadcast read that stays in
-// L1/L2.  (scale * 2^{1-b}) * code is the plain version's order; the first
-// product is exact, so the result is exact.
+// out, both coalesced) when the block is a multiple of 4, so that no group
+// of 4 straddles two rows; otherwise the same pass one element per thread.
+// The row's scale is a broadcast read that stays in L1/L2.
+// (scale * 2^{1-b}) * code is the plain version's order; the first product
+// is exact, so the result is exact.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
 quantize_decode_kernel(const signed char* __restrict__ code,
@@ -105,6 +143,20 @@ quantize_decode_kernel(const signed char* __restrict__ code,
     o.z = __fmul_rn(s, static_cast<float>(c.z));
     o.w = __fmul_rn(s, static_cast<float>(c.w));
     reinterpret_cast<float4*>(out)[i] = o;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+quantize_decode_any_kernel(const signed char* __restrict__ code,
+                           const float* __restrict__ scale,
+                           float* __restrict__ out, long long n,
+                           long long block, float step) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const float s = __fmul_rn(__ldg(scale + i / block), step);
+    out[i] = __fmul_rn(s, static_cast<float>(__ldg(code + i)));
   }
 }
 
@@ -172,11 +224,13 @@ lead_update_kernel(const float* __restrict__ x, const float* __restrict__ g,
 
 extern "C" {
 
+// block == 512 takes the register-resident hot path, any other width >= 1
+// the strided one.
 int repro_lead_diff_encode(const void* x, const void* g, const void* d,
                            const void* h, const void* u, const void* eta,
-                           void* code, void* scale, long long rows, int bits,
-                           void* stream) {
-  if (rows > 0) {
+                           void* code, void* scale, long long rows,
+                           long long block, int bits, void* stream) {
+  if (rows > 0 && block == kBlock) {
     lead_diff_encode_kernel<<<grid_for_rows(rows), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(g),
@@ -184,6 +238,14 @@ int repro_lead_diff_encode(const void* x, const void* g, const void* d,
         static_cast<const float*>(u), static_cast<const float*>(eta),
         static_cast<signed char*>(code), static_cast<float*>(scale), rows,
         bits);
+  } else if (rows > 0 && block > 0) {
+    lead_diff_encode_any_kernel<<<grid_for_rows(rows), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g),
+        static_cast<const float*>(d), static_cast<const float*>(h),
+        static_cast<const float*>(u), static_cast<const float*>(eta),
+        static_cast<signed char*>(code), static_cast<float*>(scale), rows,
+        block, bits);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -191,14 +253,20 @@ int repro_lead_diff_encode(const void* x, const void* g, const void* d,
 int repro_quantize_decode(const void* code, const void* scale, void* out,
                           long long rows, long long block, int bits,
                           void* stream) {
-  const long long n4 = rows * block / 4;
-  if (n4 > 0) {
-    const float step = ldexpf(1.f, 1 - bits);   // 2^{1-b}, exact
-    quantize_decode_kernel<<<grid_for(n4), kThreads, 0,
+  const long long n = rows * block;
+  const float step = ldexpf(1.f, 1 - bits);     // 2^{1-b}, exact
+  if (n > 0 && block % 4 == 0) {
+    quantize_decode_kernel<<<grid_for(n / 4), kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const signed char*>(code),
-        static_cast<const float*>(scale), static_cast<float*>(out), n4,
+        static_cast<const float*>(scale), static_cast<float*>(out), n / 4,
         block / 4, step);
+  } else if (n > 0) {
+    quantize_decode_any_kernel<<<grid_for(n), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const signed char*>(code),
+        static_cast<const float*>(scale), static_cast<float*>(out), n, block,
+        step);
   }
   return static_cast<int>(cudaGetLastError());
 }

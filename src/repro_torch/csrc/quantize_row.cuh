@@ -1,11 +1,13 @@
-// Shared device code of the port's kernels: the (rows, 512) row layout, the
+// Shared device code of the port's kernels: the (rows, block) row layout, the
 // vector loads, the grid of the grid-stride passes, and the blockwise p=inf
-// b-bit quantization of one 512-element row by one warp.
+// b-bit quantization of one row by one warp: quantize_row() for the paper's
+// 512-element rows (the hot path, float4 loads, values in registers) and
+// quantize_row_any() for a row of any other width.
 //
 // K1 (lead_kernels.cu, lead_diff_encode) and K4 (wire_kernels.cu,
-// quantize_encode) both quantize through quantize_row() below, so the two
-// cannot drift apart: for the same row values and dither they write the
-// same codes and scale, bit for bit.
+// quantize_encode) both quantize through these routines, so the two cannot
+// drift apart: for the same row values and dither they write the same codes
+// and scale, bit for bit.
 //
 // Exactness.  The quantizer computes floor(2^{b-1} |v| / scale + u): an
 // element sitting on a level boundary flips its code under any change of
@@ -19,7 +21,7 @@
 
 namespace {
 
-constexpr int kBlock = 512;                 // quantization block = one row
+constexpr int kBlock = 512;                 // the paper's block: the hot path
 constexpr int kWarp = 32;
 constexpr int kVec4PerLane = kBlock / (4 * kWarp);   // 4 float4 per lane
 constexpr int kValsPerLane = 4 * kVec4PerLane;       // 16 floats per lane
@@ -74,6 +76,38 @@ __device__ __forceinline__ void quantize_row(const float (&v)[kValsPerLane],
   if (lane == 0) scale[row] = amax > 0.f ? amax : 0.f;
 }
 
+// Quantize row `row` of a (rows, block) plane, any block >= 1, by one warp:
+// a strided scalar loop (lane l takes elements l, l + 32, ...), so nothing
+// is assumed of the row's alignment.  `value(i)` gives element i of the
+// plane (K4: x[i]; K1: the rounded difference) and is called twice per
+// element, once per pass: pass 1 takes the row max and reduces it across the
+// warp with __shfl_xor_sync, pass 2 writes the codes through quant().  The
+// max is exact and independent of the order it is taken in (fmaxf), and
+// value(i) is the same rounded sequence in both passes, so the codes and
+// the scale are those of the plain version, bit for bit.  A row narrower
+// than a warp leaves lanes idle (a 16-wide row runs at half occupancy).
+template <class Value>
+__device__ __forceinline__ void quantize_row_any(const Value& value,
+                                                 const float* __restrict__ u,
+                                                 signed char* __restrict__ code,
+                                                 float* __restrict__ scale,
+                                                 long long row, long long block,
+                                                 int lane, int bits) {
+  const long long base = row * block;
+  float amax = 0.f;
+  for (long long i = lane; i < block; i += kWarp)
+    amax = fmaxf(amax, fabsf(value(base + i)));
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+
+  const float c = static_cast<float>(1 << (bits - 1));
+  const float safe = amax > 0.f ? amax : 1.f;   // a zero row stays zero
+  for (long long i = lane; i < block; i += kWarp)
+    code[base + i] = quant(value(base + i), __ldg(u + base + i), c, safe);
+  if (lane == 0) scale[row] = amax > 0.f ? amax : 0.f;
+}
+
 // Grid for the grid-stride passes: enough resident CTAs to cover every SM
 // several times over, never more than the work needs.
 inline unsigned grid_for(long long n4) {
@@ -85,7 +119,7 @@ inline unsigned grid_for(long long n4) {
   return static_cast<unsigned>(need < cap ? need : cap);
 }
 
-// Grid for the one-warp-per-row kernels (K1, K4).
+// Grid for the one-warp-per-row kernels (K1, K4), at any block width.
 inline unsigned grid_for_rows(long long rows) {
   return static_cast<unsigned>((rows + kRowsPerCta - 1) / kRowsPerCta);
 }

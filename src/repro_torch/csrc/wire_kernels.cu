@@ -1,7 +1,9 @@
 // Hopper (sm_90a) kernels for the compressed wires of the paper's baselines:
 // the blockwise p=inf b-bit quantizer's encode (K4), the shared-seed random-k
 // keep pass (K5) and the top-k mask pass (K6).  Every kernel works on f32
-// (rows, 512) planes, rows = n_agents * nb, in the layout of the flat engine.
+// (rows, block) planes, rows = n_agents * nb, in the layout of the flat
+// engine; K4 takes the paper's block of 512 on its hot path and any width
+// >= 1 otherwise, K5 and K6 are elementwise.
 //
 // Built with lead_kernels.cu into one shared library with a plain C
 // interface by repro_torch/kernels/cuda_lib.py (nvcc -gencode
@@ -54,6 +56,28 @@ quantize_encode_kernel(const float* __restrict__ x,
     v[4 * j + 3] = xv.w;
   }
   quantize_row(v, u, code, scale, row, base4, lane, bits);
+}
+
+// K4 at any other block width: the same warp per row through
+// quantize_row_any(), which reads each element of x once per pass.
+struct PlaneValues {
+  const float* __restrict__ x;
+  __device__ __forceinline__ float operator()(long long i) const {
+    return __ldg(x + i);
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+quantize_encode_any_kernel(const float* __restrict__ x,
+                           const float* __restrict__ u,
+                           signed char* __restrict__ code,
+                           float* __restrict__ scale, long long rows,
+                           long long block, int bits) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kRowsPerCta + (threadIdx.x >> 5);
+  if (row >= rows) return;                  // whole warps exit together
+  quantize_row_any(PlaneValues{x}, u, code, scale, row, block, lane, bits);
 }
 
 // ---------------------------------------------------------------------------
@@ -118,15 +142,23 @@ struct MaskApply {
 
 extern "C" {
 
+// block == 512 takes the register-resident hot path, any other width >= 1
+// the strided one.
 int repro_quantize_encode(const void* x, const void* u, void* code,
-                          void* scale, long long rows, int bits,
-                          void* stream) {
-  if (rows > 0) {
+                          void* scale, long long rows, long long block,
+                          int bits, void* stream) {
+  if (rows > 0 && block == kBlock) {
     quantize_encode_kernel<<<grid_for_rows(rows), kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(u),
         static_cast<signed char*>(code), static_cast<float*>(scale), rows,
         bits);
+  } else if (rows > 0 && block > 0) {
+    quantize_encode_any_kernel<<<grid_for_rows(rows), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(u),
+        static_cast<signed char*>(code), static_cast<float*>(scale), rows,
+        block, bits);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,7 @@
                     code bit packing
 
 Layout contract (the reference's): every kernel works row-wise on f32
-(rows, block=512) planes, rows = n_agents * nb, and zero rows are a fixed
-point of every kernel.
+(rows, block) planes, rows = n_agents * nb, and zero rows are a fixed
+point of every kernel.  The quantizer's kernels (K1, K2, K4) take any
+block >= 1; block 512, the paper's, is their hot path.
 """

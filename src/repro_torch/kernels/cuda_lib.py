@@ -44,15 +44,17 @@ LAUNCHES = {"lead_diff_encode": 0, "quantize_decode": 0, "lead_update": 0,
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # x, g, d, h, u, eta, code, scale, rows, bits, stream
-    "repro_lead_diff_encode": [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, _P],
+    # x, g, d, h, u, eta, code, scale, rows, block, bits, stream
+    "repro_lead_diff_encode": [_P] * 8 + [ctypes.c_longlong, ctypes.c_longlong,
+                                          ctypes.c_int, _P],
     # code, scale, out, rows, block, bits, stream
     "repro_quantize_decode": [_P] * 3 + [ctypes.c_longlong, ctypes.c_longlong,
                                          ctypes.c_int, _P],
     # x, g, d, h, hw, qh, wqh, eta, gamma, alpha, xo, do, ho, hwo, n, stream
     "repro_lead_update": [_P] * 14 + [ctypes.c_longlong, _P],
-    # x, u, code, scale, rows, bits, stream
-    "repro_quantize_encode": [_P] * 4 + [ctypes.c_longlong, ctypes.c_int, _P],
+    # x, u, code, scale, rows, block, bits, stream
+    "repro_quantize_encode": [_P] * 4 + [ctypes.c_longlong, ctypes.c_longlong,
+                                         ctypes.c_int, _P],
     # x, u, out, n, ratio, scale, stream (the floats rounded to f32 here)
     "repro_randk_encode": [_P] * 3 + [ctypes.c_longlong, ctypes.c_float,
                                       ctypes.c_float, _P],

@@ -18,7 +18,6 @@ import torch
 
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.dispatch import use_kernel
-from repro_torch.kernels.quantize import DEFAULT_BLOCK
 from repro_torch.kernels.ref import lead_diff_encode_ref as lead_diff_encode_plain
 from repro_torch.kernels.ref import lead_update_ref as lead_update_plain
 
@@ -64,17 +63,16 @@ def lead_update(x, g, d, h, hw, qh, wqh, eta, gamma, alpha):
 def lead_diff_encode(x, g, d, h, u, eta, *, bits: int = 2):
     """Fused Y-difference + quantization (pre-communication pass).
 
-    x, g, d, h, u: (rows, 512) f32.  Returns (code int8, scale (rows,1) f32).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    x, g, d, h, u: (rows, block) f32, any block >= 1.  Returns (code int8,
+    scale (rows,1) f32).  CPU tensors take the plain version; CUDA tensors
+    launch the kernel (block 512: the float4 hot path; any other width: the
+    strided one)."""
     if not 1 <= bits <= 7:
         raise ValueError("int8 code container supports bits in [1, 7]")
     planes = (x, g, d, h, u)
     if not use_kernel(*planes):
         return lead_diff_encode_plain(x, g, d, h, u, eta, bits)
     rows, block = x.shape
-    if block != DEFAULT_BLOCK:
-        raise ValueError(f"the kernel maps one warp to a {DEFAULT_BLOCK}-"
-                         f"element row; got block={block}")
     for name, t in zip(("x", "g", "d", "h", "u"), planes):
         cuda_lib.check_operand(t, name, torch.float32, x.shape)
     eta_t = _scalar(eta, x.device, "eta")
@@ -82,7 +80,7 @@ def lead_diff_encode(x, g, d, h, u, eta, *, bits: int = 2):
     scale = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
     rc = cuda_lib.library().repro_lead_diff_encode(
         *(t.data_ptr() for t in planes), eta_t.data_ptr(), code.data_ptr(),
-        scale.data_ptr(), rows, bits, cuda_lib.stream_handle())
+        scale.data_ptr(), rows, block, bits, cuda_lib.stream_handle())
     cuda_lib.LAUNCHES["lead_diff_encode"] += 1
     cuda_lib.check_launch(rc, "lead_diff_encode")
     return code, scale

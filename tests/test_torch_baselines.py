@@ -34,7 +34,7 @@ from repro_torch.core import topology
 from repro_torch.core.compression import QuantizePNorm, RandK, TopK
 from repro_torch.core.convert import (logreg_from_numpy, problem_from_numpy,
                                       state_from_numpy)
-from repro_torch.core.convex import LogisticRegression
+from repro_torch.core.convex import LinearRegression, LogisticRegression
 from repro_torch.core.engines import (ENGINES, algorithm_name, describe,
                                       engine_for, is_exact)
 from repro_torch.core.lead import LEADHyper
@@ -296,6 +296,53 @@ def test_lead_generic_wire_step_parity(wire, gossip):
                          dither="fast")
     with jax.disable_jit():
         _step_parity(eng, ref, seed0=7, lead_hyper=hyper)
+
+
+# -- gossip="ring": the uniform-ring alias of the neighbor gather ------------
+
+@pytest.mark.parametrize("name", ["lead", "choco", "dcd"])
+def test_ring_gossip_alias_matches_reference(name):
+    """gossip="ring" is accepted, as in the reference (its tests drive LEAD
+    and CHOCO through it: tests/test_engine.py, tests/test_flat_baselines.
+    py): the same registry path and per-step parity with the reference's
+    ring engine on the 2-bit p=inf wire."""
+    hyper = (LEADHyper(eta=0.1, gamma=1.0, alpha=0.5),
+             JaxLEADHyper(eta=0.1, gamma=1.0, alpha=0.5))
+    eng = engine_for(topology.ring(N), QuantizePNorm(bits=2), DIM,
+                     algorithm=name, gossip="ring", device=CPU)
+    ref = jax_engine_for(jax_topology.ring(N), JaxQuantizePNorm(bits=2), DIM,
+                         algorithm=name, gossip="ring", dither="fast")
+    assert describe(eng) == jax_describe(ref)
+    with jax.disable_jit():
+        _step_parity(eng, ref, seed0=3,
+                     lead_hyper=hyper if name == "lead" else None)
+
+
+def test_ring_gossip_alias_runs_and_rejects_other_graphs():
+    """CHOCO on the ring alias through run() with a schedule: bits are the
+    static estimate per step and the run falls, as the reference's
+    test_baseline_schedule_runs_through_simulator pins; uncompressed LEAD
+    on the alias steps exactly as on dense gossip up to summation order.
+    A graph other than the uniform ring raises ValueError."""
+    prob = LinearRegression.generate(torch.Generator().manual_seed(0),
+                                     n_agents=8, m=40, d=30, noise=0.05,
+                                     device=CPU)
+    q4 = QuantizePNorm(bits=4)
+    algo = engine_for(topology.ring(8), q4, 30, algorithm="choco",
+                      gossip="ring", eta=lambda k: 0.05 / (1.0 + 0.02 * k),
+                      gamma=0.8, device=CPU)
+    tr = run(algo, prob, prob.x_star, iters=150)
+    assert np.isfinite(tr.dist[-1]) and tr.dist[-1] < tr.dist[0]
+    np.testing.assert_allclose(
+        tr.bits_per_agent, (np.arange(150) + 1) * q4.wire_bits(30))
+    dense, ring = (run(LEADSim(topology=topology.ring(8), eta=0.02,
+                               engine_gossip=g), prob, prob.x_star, iters=50)
+                   for g in ("dense", "ring"))
+    _trace_close(ring.dist, dense.dist, "ring vs dense LEAD")
+    for topo in (topology.torus_2d(2, 4), topology.fully_connected(4)):
+        with pytest.raises(ValueError, match="uniform ring"):
+            engine_for(topo, QuantizePNorm(bits=2), 64, gossip="ring",
+                       device=CPU)
 
 
 def test_generic_wire_marks_its_stages():

@@ -13,9 +13,12 @@ import pytest
 import torch
 
 from repro_torch.core import topology
+from repro_torch.core.baselines import CHOCO_SGD, DGD, NIDS
 from repro_torch.core.compression import QuantizePNorm, RandK, TopK
+from repro_torch.core.convert import state_from_numpy
 from repro_torch.core.convex import LinearRegression
 from repro_torch.core.engines import engine_for
+from repro_torch.core.gossip import DenseGossip
 from repro_torch.core.simulator import LEADSim, run
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import lead_update as lu
@@ -140,13 +143,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         lu.lead_update(*([x.t().contiguous().t()] * 7), 0.1, 1.0, 0.5)
     with pytest.raises(TypeError):                  # wrong dtype
         lu.lead_diff_encode(x.double(), x, x, x, x, 0.1)
-    with pytest.raises(ValueError):                 # not one 512 block a row
-        lu.lead_diff_encode(*([torch.zeros(8, 256, device=cuda_device)] * 5),
-                            0.1)
+    # 256-wide rows run (the strided routine) and equal the plain versions
+    rows256 = [torch.randn(8, 256, device=cuda_device) for _ in range(5)]
+    assert all(torch.equal(a, b) for a, b in zip(
+        lu.lead_diff_encode(*rows256, 0.1),
+        lu.lead_diff_encode_plain(*rows256, 0.1, 2)))
+    with pytest.raises(ValueError):                 # mismatched u shape
+        lu.lead_diff_encode(*rows256[:4], rows256[4][:, :128], 0.1)
     with pytest.raises(ValueError):                 # scalar on another device
         lu.lead_update(*([x] * 7), torch.tensor(0.1), 1.0, 0.5)
-    with pytest.raises(ValueError):                 # not one 512 block a row
-        q.encode(*([torch.zeros(8, 256, device=cuda_device)] * 2))
+    assert all(torch.equal(a, b) for a, b in zip(
+        q.encode(*rows256[:2]), q.encode_plain(*rows256[:2], 2)))
+    with pytest.raises(ValueError):                 # mismatched u shape
+        q.encode(rows256[0], rows256[1][:4])
     with pytest.raises(TypeError):                  # wrong dtype
         sp.mask_apply(x, x.to(torch.int32))
     with pytest.raises(ValueError):                 # mismatched shapes
@@ -199,3 +208,121 @@ def test_choco_runs_through_the_wire_kernels(cuda_device):
         assert cuda_lib.launch_counts() == {
             k: 20 if k in kernels else 0 for k in cuda_lib.LAUNCHES}, comp
         assert np.isfinite(tr.dist).all() and tr.dist[-1] < tr.dist[0], comp
+
+
+BLOCKS = [1, 3, 16, 100, 256, 512, 1024, 4096]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", BLOCKS)
+def test_quantizer_kernels_at_any_block_width(cuda_device, block):
+    """K1, K4 and K2 bit-identical to their plain versions at every block
+    width (512: the float4 hot path; any other: the strided routine), at
+    b = 2, 4 and 7, a zero row included; one launch per call."""
+    rows = max(8, (1 << 18) // block)
+    gen = torch.Generator(cuda_device).manual_seed(block)
+    x, g, d, h = (torch.randn(rows, block, generator=gen, device=cuda_device)
+                  for _ in range(4))
+    x[1] = 0.0
+    u = torch.rand(rows, block, generator=gen, device=cuda_device)
+    eta = torch.full((), 0.07, device=cuda_device)
+    for bits in (2, 4, 7):
+        before = cuda_lib.launch_counts()
+        c1, s1 = q.encode(x, u, bits=bits)
+        k1, t1 = lu.lead_diff_encode(x, g, d, h, u, eta, bits=bits)
+        o1 = q.decode(c1, s1, bits=bits)
+        after = cuda_lib.launch_counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(k in ("quantize_encode", "lead_diff_encode",
+                         "quantize_decode")) for k in after}
+        c2, s2 = q.encode_plain(x, u, bits)
+        assert torch.equal(c1, c2) and torch.equal(s1, s2)
+        assert float(s1[1]) == 0.0 and not bool(c1[1].any())
+        k2, t2 = lu.lead_diff_encode_plain(x, g, d, h, u, eta, bits)
+        assert torch.equal(k1, k2) and torch.equal(t1, t2)
+        assert torch.equal(o1, q.decode_plain(c1, s1, bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lead", "choco"])
+def test_flat_engines_at_block_256_match_the_cpu(cuda_device, name):
+    """The flat LEAD and CHOCO engines with QuantizePNorm(block=256) step on
+    the card: from the same state, five steps each agree with the CPU's
+    (codes identical, so the states agree to rounding of the mix)."""
+    comp = QuantizePNorm(bits=2, block=256)
+    engines = {dev: engine_for(topology.ring(8), comp, 1000, algorithm=name,
+                               eta=0.05, device=dev)
+               for dev in (cuda_device, "cpu")}
+    rng = np.random.default_rng(5)
+    x0, g0 = (torch.from_numpy(rng.standard_normal((8, 1000))
+                               .astype(np.float32)) for _ in range(2))
+    st = engines["cpu"].init(x0, g0)
+    cuda_lib.reset_launch_counts()
+    for step in range(5):
+        g = torch.from_numpy(rng.standard_normal((8, 1000)).astype(np.float32))
+        want = engines["cpu"].step(st, g, 11 + step)
+        got = engines[cuda_device].step(
+            state_from_numpy(type(st), {f: v.numpy() for f, v in
+                                        st._asdict().items()},
+                             device=cuda_device), g.to(cuda_device), 11 + step)
+        for f in want._fields:
+            np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
+                                       getattr(want, f).numpy(), rtol=1e-5,
+                                       atol=1e-5, err_msg=f"{name} {f}")
+        st = want
+    launched = {k for k, v in cuda_lib.launch_counts().items() if v}
+    assert launched == ({"lead_diff_encode", "quantize_decode", "lead_update"}
+                        if name == "lead"
+                        else {"quantize_encode", "quantize_decode"})
+
+
+@pytest.mark.cuda
+def test_topk_mask_on_the_card_equals_the_cpu(cuda_device):
+    """The tie-stable TopK mask is the same on the card as on the CPU, on
+    tied integer rows and on continuous ones."""
+    rng = np.random.default_rng(0)
+    for rows in (rng.integers(-3, 4, size=(8, 3000)).astype(np.float32),
+                 rng.choice(np.array([-1.0, 1.0], np.float32), size=(8, 40)),
+                 rng.standard_normal((8, 5000)).astype(np.float32)):
+        for ratio in (0.01, 0.1, 0.5):
+            t = torch.from_numpy(rows)
+            cpu = TopK(ratio=ratio)._mask_rows(t)
+            card = TopK(ratio=ratio)._mask_rows(t.to(cuda_device))
+            assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_tree_path_runs_through_the_wire_kernels(cuda_device):
+    """Tree LEAD on the 2-bit p=inf wire launches K4 and K2 once per step
+    and never K1 or K3; tree CHOCO launches K5 on RandK and K6 on TopK;
+    tree NIDS and DGD on the card match their CPU runs."""
+    prob = LinearRegression.generate(torch.Generator(cuda_device).manual_seed(0),
+                                     n_agents=8, m=64, d=64,
+                                     device=cuda_device)
+    mu, L = prob.mu_L
+    gossip = DenseGossip.from_topology(topology.ring(8), cuda_device)
+    lead = LEADSim(gossip=gossip, compressor=QuantizePNorm(bits=2),
+                   eta=1.0 / L, engine="tree")
+    cuda_lib.reset_launch_counts()
+    tr = run(lead, prob, prob.x_star, iters=50)
+    assert cuda_lib.launch_counts() == {
+        k: 50 if k in ("quantize_encode", "quantize_decode") else 0
+        for k in cuda_lib.LAUNCHES}
+    assert np.isfinite(tr.dist).all() and tr.dist[-1] < 1e-2 * tr.dist[0]
+    for comp, kernel in ((RandK(ratio=0.5, rescale=False), "randk_encode"),
+                         (TopK(ratio=0.5), "mask_apply")):
+        cuda_lib.reset_launch_counts()
+        run(CHOCO_SGD(gossip=gossip, compressor=comp, eta=0.5 / L, gamma=0.2),
+            prob, prob.x_star, iters=20)
+        assert cuda_lib.launch_counts() == {
+            k: 20 if k == kernel else 0 for k in cuda_lib.LAUNCHES}
+    cpu = LinearRegression.from_arrays(prob.A, prob.b, prob.lam, device="cpu")
+    cpu_gossip = DenseGossip.from_topology(topology.ring(8), "cpu")
+    for cls in (NIDS, DGD):
+        on_card = run(cls(gossip=gossip, eta=1.0 / L), prob, prob.x_star,
+                      iters=100)
+        on_cpu = run(cls(gossip=cpu_gossip, eta=1.0 / L), cpu,
+                     prob.x_star.cpu(), iters=100)
+        for a, b in zip(on_card[:3], on_cpu[:3]):
+            np.testing.assert_allclose(a, b, rtol=1e-5,
+                                       atol=1e-5 * np.max(np.abs(b)))

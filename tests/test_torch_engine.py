@@ -255,8 +255,15 @@ def test_unported_paths_raise():
         engine_for(topo, None, 64, gossip="hier", device=CPU)
     with pytest.raises(NotImplementedError):
         engine_for(topo, None, 64, faults=object(), device=CPU)
-    with pytest.raises(NotImplementedError):
-        LEADSim(topology=topo, compressor=Identity(), engine="tree")
+    # the tree path is ported: it steps (and still needs a compressor)
+    tree = LEADSim(topology=topo, compressor=Identity(), engine="tree",
+                   device=CPU)
+    x = torch.ones(8, 64)
+    new, err, bits = tree.step_with_wire(tree.init(x, x), x, 0)
+    assert int(new.k) == 1 and bool(torch.isfinite(new.x).all())
+    assert float(bits) == Identity().wire_bits(64)
+    with pytest.raises(ValueError):
+        LEADSim(topology=topo, engine="tree")
     with pytest.raises(NotImplementedError):
         LEADSim(topology=topo, faults=object())
     with pytest.raises(ValueError):

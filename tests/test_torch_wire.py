@@ -332,6 +332,45 @@ def test_topk_exact_encode_blocks_equals_reference(ratio):
                          idx=torch.zeros(N, 8, dtype=torch.int64))
 
 
+TIED = [("int", 20), ("int", 257), ("int", 1300), ("int", 3000),
+        ("pm1", 40), ("pm1", 1300)]
+
+
+def _tied_rows(kind, d, seed):
+    """(N, d) rows whose magnitudes tie: integers in [-3, 3], or +-1."""
+    rng = np.random.default_rng(seed)
+    if kind == "int":
+        return rng.integers(-3, 4, size=(N, d)).astype(np.float32)
+    return rng.choice(np.array([-1.0, 1.0], np.float32), size=(N, d))
+
+
+@pytest.mark.parametrize("kind,d", TIED, ids=[f"{k}{d}" for k, d in TIED])
+def test_topk_ties_keep_the_reference_entries(kind, d):
+    """Exact TopK on tied magnitudes: jax.lax.top_k keeps the lower index
+    among equal magnitudes, and so does the port (threshold at the k-th
+    magnitude, then the first ties by a running count).  The mask and the
+    encode_blocks payload equal the reference's, exactly k per row; on d =
+    40 entries of +-1 with k = 4 both keep indices 0-3."""
+    rows = _tied_rows(kind, d, seed=d)
+    cj, ct = jax_comp.TopK(ratio=0.1), comp.TopK(ratio=0.1)
+    k = max(1, int(d * 0.1))
+    with jax.disable_jit():
+        mj = np.asarray(cj._mask_rows(jnp.asarray(rows)))
+    mt = ct._mask_rows(torch.from_numpy(rows)).numpy()
+    np.testing.assert_array_equal(mt, mj)
+    assert (mt.sum(axis=1) == k).all()
+    if kind == "pm1" and d == 40:
+        assert np.nonzero(mt[0])[0].tolist() == [0, 1, 2, 3]
+    nb = -(-d // 512)
+    buf = np.zeros((N, nb * 512), np.float32)
+    buf[:, :d] = rows
+    buf = buf.reshape(N, nb, 512)
+    with jax.disable_jit():
+        pj, _ = cj.encode_blocks(jax.random.PRNGKey(0), jnp.asarray(buf), d)
+    pt, _ = ct.encode_blocks(torch.from_numpy(buf), d)
+    _assert_payload_equal(pt, pj)
+
+
 @pytest.mark.parametrize("ratio", [0.05, 0.2])
 def test_topk_approx_encode_blocks_equals_reference(ratio):
     """Approximate TopK: with the reference's own sample indices, the
