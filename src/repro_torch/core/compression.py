@@ -164,43 +164,38 @@ def _nb_logical(dim: int, block: int) -> int:
 
 
 def _flat_to_rows(buf: torch.Tensor, dim: int) -> torch.Tensor:
-    """(n, nb, block) -> (n, dim): drop the zero padding past the logical
-    dim (a view)."""
+    """(n, ...) blocked -> (n, dim): drop the padding past the logical dim
+    (a view)."""
     n = buf.shape[0]
     return buf.reshape(n, -1)[:, :dim]
 
 
-def _rows_to_flat(rows: torch.Tensor, like: torch.Tensor,
+def _rows_to_flat(rows: torch.Tensor, nb: int, block: int,
                   value: float = 0.0) -> torch.Tensor:
-    """(n, dim) -> (n, nb, block), padded with `value` to `like`'s blocked
-    shape (a view when there is nothing to pad and rows is contiguous)."""
-    n, nb, block = like.shape
-    pad = nb * block - rows.shape[1]
+    """(n, dim) -> (n, nb, block) f32, padded with `value` past dim (a view
+    when there is nothing to pad and rows is contiguous f32)."""
+    n, dim = rows.shape
+    rows = rows.to(torch.float32)
+    pad = nb * block - dim
     if pad:
         rows = F.pad(rows, (0, pad), value=value)
     return rows.reshape(n, nb, block)
 
 
-def _agent_blocks(rows: torch.Tensor, block: int,
-                  value: float = 0.0) -> torch.Tensor:
-    """(n, m) -> (n * ceil(m/block), block) f32 rows, each agent's vector
-    padded with `value` to whole blocks (a view when there is nothing to
-    pad and rows is contiguous f32)."""
-    n, m = rows.shape
-    nb = _nb_logical(m, block)
-    rows = rows.to(torch.float32)
-    if nb * block > m:
-        rows = F.pad(rows, (0, nb * block - m), value=value)
-    return rows.reshape(n * nb, block)
+def _agent_rows(X: torch.Tensor, block: int, value: float = 0.0):
+    """Each agent's array of X (n, ...) flattened and padded to whole
+    blocks: (n * ceil(size/block), block) f32, one kernel call for all
+    agents."""
+    rows = X.reshape(X.shape[0], -1)
+    return _rows_to_flat(rows, _nb_logical(rows.shape[1], block), block,
+                         value).reshape(-1, block)
 
 
-def _agents_back(blocks: torch.Tensor, shape, dtype) -> torch.Tensor:
-    """Inverse of _agent_blocks: (n * nb, block) -> (n, ...) `shape` in
-    `dtype`, the padding dropped."""
-    m = 1
-    for s in shape[1:]:
-        m *= int(s)
-    return blocks.reshape(shape[0], -1)[:, :m].reshape(shape).to(dtype)
+def _agents_from_rows(rows: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """Inverse of _agent_rows: the agents' arrays of `shape` in `dtype`,
+    the padding dropped."""
+    return _flat_to_rows(rows.reshape(shape[0], -1),
+                         math.prod(shape[1:])).reshape(shape).to(dtype)
 
 
 _SCAN_CHUNK = 1024       # chunk of _first_true's count
@@ -277,7 +272,7 @@ class QuantizePNorm:
         and zero-padded to its block matrix (a padded element is zero, so
         its code is 0 whatever its dither); p=inf encodes with K4."""
         n = X.shape[0]
-        blocks = _agent_blocks(X.reshape(n, -1), self.block)
+        blocks = _agent_rows(X, self.block)
         if _is_inf(self.p):
             code, scale = _q.encode(blocks, u.reshape(-1, self.block),
                                     bits=self.bits)
@@ -290,7 +285,7 @@ class QuantizePNorm:
         """scale * 2^(1-b) * code (K2), back to the agents' `shape`."""
         rows = _q.decode(code.reshape(-1, self.block), scale.reshape(-1, 1),
                          bits=self.bits)
-        return _agents_back(rows, shape, dtype)
+        return _agents_from_rows(rows, shape, dtype)
 
     def compress_agents(self, X: torch.Tensor, u: torch.Tensor):
         """Each agent's encode then decode: one K4 and one K2 pass for all
@@ -325,7 +320,7 @@ class QuantizePNorm:
         if block != self.block:
             raise ValueError(f"buffer block {block} != quantizer block "
                              f"{self.block}")
-        ub = _rows_to_flat(u, buf)
+        ub = _rows_to_flat(u, nb, block)
         if _is_inf(self.p):
             code, scale = _q.encode(buf.reshape(n * nb, block),
                                     ub.reshape(n * nb, block),
@@ -446,7 +441,7 @@ class TopK:
                 raise ValueError("exact TopK takes no sample indices")
             maskr = self._mask_rows(rows)
             bits = _bits(self.wire_bits(dim), buf.device)
-        mask = _rows_to_flat(maskr.to(torch.float32), buf)
+        mask = _rows_to_flat(maskr, nb, block)
         mark("topk_mask")
         vals = mask_apply(buf.reshape(n * nb, block),
                           mask.reshape(n * nb, block))
@@ -459,13 +454,12 @@ class TopK:
     def compress_agents(self, X: torch.Tensor) -> torch.Tensor:
         """Each agent's exact top-k of its whole flattened array: the
         tie-stable mask, applied by one K6 pass for all agents."""
-        n = X.shape[0]
-        rows = X.reshape(n, -1)
-        mask = _agent_blocks(self._mask_rows(rows), DEFAULT_BLOCK)
+        mask = _agent_rows(self._mask_rows(X.reshape(X.shape[0], -1)),
+                           DEFAULT_BLOCK)
         mark("topk_mask")
-        vals = mask_apply(_agent_blocks(rows, DEFAULT_BLOCK), mask)
+        vals = mask_apply(_agent_rows(X, DEFAULT_BLOCK), mask)
         mark("encode")
-        return _agents_back(vals, X.shape, X.dtype)
+        return _agents_from_rows(vals, X.shape, X.dtype)
 
     def compress(self, x: torch.Tensor) -> torch.Tensor:
         return self.compress_agents(x[None])[0]
@@ -501,13 +495,11 @@ class RandK:
     def compress_agents(self, X: torch.Tensor, u: torch.Tensor):
         """x * (1/ratio if rescale) where u < ratio, else 0: one K5 pass
         for all agents (u padded with 1.0, never kept)."""
-        n = X.shape[0]
-        vals = randk_encode(_agent_blocks(X.reshape(n, -1), DEFAULT_BLOCK),
-                            _agent_blocks(u.reshape(n, -1), DEFAULT_BLOCK,
-                                          value=1.0),
+        vals = randk_encode(_agent_rows(X, DEFAULT_BLOCK),
+                            _agent_rows(u, DEFAULT_BLOCK, value=1.0),
                             ratio=self.ratio, rescale=self.rescale)
         mark("encode")
-        return _agents_back(vals, X.shape, X.dtype)
+        return _agents_from_rows(vals, X.shape, X.dtype)
 
     def compress(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         return self.compress_agents(x[None], u[None])[0]
@@ -528,7 +520,7 @@ class RandK:
         kept).  Bits are data-dependent: 32 per kept entry, averaged over
         agents."""
         n, nb, block = buf.shape
-        ub = _rows_to_flat(u, buf, value=1.0)
+        ub = _rows_to_flat(u, nb, block, value=1.0)
         vals = randk_encode(buf.reshape(n * nb, block),
                             ub.reshape(n * nb, block), ratio=self.ratio,
                             rescale=self.rescale)

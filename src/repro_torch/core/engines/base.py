@@ -56,11 +56,11 @@ from typing import Any, ClassVar, Dict
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import topology as topology_mod
 from repro_torch.core.compression import (Identity, QuantizePNorm, TopK,
-                                          _is_inf, fast_uniform)
+                                          _flat_to_rows, _is_inf,
+                                          _rows_to_flat, fast_uniform)
 from repro_torch.core.gossip import DenseGossip, EncodedNeighborGossip
 from repro_torch.core.lead import _at
 from repro_torch.core.stage_timer import mark
@@ -162,16 +162,11 @@ class FlatEngineBase:
     def blockify(self, arr: torch.Tensor) -> torch.Tensor:
         """(n, d) -> (n, nb, block), zero-padded past d (a view when there
         is nothing to pad)."""
-        n = arr.shape[0]
-        pad = self.nb * self.block - self.dim
-        flat = arr.to(torch.float32)
-        if pad:
-            flat = F.pad(flat, (0, pad))
-        return flat.reshape(n, self.nb, self.block)
+        return _rows_to_flat(arr, self.nb, self.block)
 
     def unblockify(self, buf: torch.Tensor) -> torch.Tensor:
         """(n, nb, block) -> (n, d)."""
-        return buf.reshape(buf.shape[0], -1)[:, :self.dim]
+        return _flat_to_rows(buf, self.dim)
 
     def _blockify_g(self, g: torch.Tensor) -> torch.Tensor:
         """Gradients arrive either (n, d) or already in the native

@@ -53,6 +53,15 @@ def vmap_compress(compressor) -> Callable:
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def static_bits(compressor, d: int, device: torch.device) -> torch.Tensor:
+    """The per-agent bits of one step on a path that forms no payload: the
+    compressor's static wire_bits(d) (32 per element uncompressed), a 0-d
+    f32 tensor on `device`, built once per (compressor, d, device)."""
+    bits = compressor.wire_bits(d) if compressor is not None else d * 32
+    return torch.full((), float(bits), dtype=torch.float32, device=device)
+
+
 @dataclasses.dataclass(frozen=True)
 class LEADSim:
     """init/step adapter making LEAD interface-compatible with the
@@ -152,9 +161,8 @@ class LEADSim:
             new, cerr = lead_mod.step_with_metrics(
                 state, g, seed, self.hyper, self._gossip.mix,
                 vmap_compress(self.compressor))
-            bits = torch.full((), float(self.compressor.wire_bits(
-                g.shape[1])), dtype=torch.float32, device=g.device)
-            return new, cerr, bits
+            return new, cerr, static_bits(self.compressor, g.shape[1],
+                                          g.device)
         return self._flat_engine(self._dim_of(g)).step_wire(state, g, seed,
                                                             self.hyper)
 
@@ -249,9 +257,7 @@ def run(algo, problem, x_star, *, iters=300, seed: int = 0, stochastic=False,
     state = algo.init(x0, problem.full_grad(x0))
     x_of = getattr(algo, "x_of", lambda s: s.x)
     comp = getattr(algo, "compressor", None)
-    static_bits = torch.full((), float(comp.wire_bits(d) if comp is not None
-                                       else d * 32),
-                             dtype=torch.float32, device=dev)
+    bits_per_step = static_bits(comp, d, dev)
     step_with_wire = getattr(algo, "step_with_wire", None)
     step_with_metrics = getattr(algo, "step_with_metrics", None)
 
@@ -264,11 +270,12 @@ def run(algo, problem, x_star, *, iters=300, seed: int = 0, stochastic=False,
         if step_with_wire is not None:
             new, cerr, bits = step_with_wire(state, g, s)
         elif step_with_metrics is not None:
-            (new, cerr), bits = step_with_metrics(state, g, s), static_bits
+            new, cerr = step_with_metrics(state, g, s)
+            bits = bits_per_step
         else:
             new = algo.step(state, g, s)
             cerr = _compression_error(algo, state, problem, s)
-            bits = static_bits
+            bits = bits_per_step
         bits_acc = bits_acc + bits
         if it % record_every == 0:
             X = x_of(new)

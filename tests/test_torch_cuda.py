@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.core import topology
 from repro_torch.core.baselines import CHOCO_SGD, DGD, NIDS
-from repro_torch.core.compression import QuantizePNorm, RandK, TopK
+from repro_torch.core.compression import (QuantizePNorm, RandK, TopK,
+                                          agent_draws)
 from repro_torch.core.convert import state_from_numpy
 from repro_torch.core.convex import LinearRegression
 from repro_torch.core.engines import engine_for
@@ -326,3 +327,40 @@ def test_tree_path_runs_through_the_wire_kernels(cuda_device):
         for a, b in zip(on_card[:3], on_cpu[:3]):
             np.testing.assert_allclose(a, b, rtol=1e-5,
                                        atol=1e-5 * np.max(np.abs(b)))
+
+
+TREE_COMPRESSORS = {"pinf_2bit": (QuantizePNorm(bits=2), "quantize_encode"),
+                    "pinf_4bit_b100": (QuantizePNorm(bits=4, block=100),
+                                       "quantize_encode"),
+                    "randk_0.1": (RandK(ratio=0.1, rescale=False),
+                                  "randk_encode"),
+                    "randk_0.1_rescaled": (RandK(ratio=0.1), "randk_encode"),
+                    "topk_0.01": (TopK(ratio=0.01), "mask_apply")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TREE_COMPRESSORS))
+@pytest.mark.parametrize("shape", [(8, 200), (8, 3000), (3, 7, 130)],
+                         ids=str)
+def test_tree_compress_on_the_card_equals_the_cpu(cuda_device, name, shape):
+    """The tree path's per-agent compress (padding to whole blocks, the
+    kernel, the way back to the agents' shape) gives on the card, bit for
+    bit, what the plain versions give on the CPU for the same X and draws:
+    one kernel launch on the card (p=inf: K4 then K2), on continuous rows
+    and on tied integer rows."""
+    comp, kernel = TREE_COMPRESSORS[name]
+    rng = np.random.default_rng(len(shape))
+    for X in (rng.standard_normal(shape).astype(np.float32),
+              rng.integers(-3, 4, size=shape).astype(np.float32)):
+        X = torch.from_numpy(X).to(cuda_device)
+        draws = agent_draws(comp, X, seed=7)
+        cuda_lib.reset_launch_counts()
+        card = comp.compress_agents(X, **draws)
+        want = {kernel: 1}
+        if kernel == "quantize_encode":
+            want["quantize_decode"] = 1
+        assert cuda_lib.launch_counts() == {
+            k: want.get(k, 0) for k in cuda_lib.LAUNCHES}
+        cpu = comp.compress_agents(X.cpu(),
+                                   **{k: v.cpu() for k, v in draws.items()})
+        assert card.shape == X.shape and torch.equal(card.cpu(), cpu)
