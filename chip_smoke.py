@@ -66,6 +66,29 @@ a failed check exits nonzero.
                  (K5) and exact TopK (K6), each with its ms/step, peak memory
                  and stage breakdown; then the per-agent compress held
                  against the CPU as in fig1, at n = 8, d = 2^25
+  fig3           the paper's Fig. 3 on the card: fig2's problem with minibatch
+                 gradients of 64 samples (run(stochastic=True)), 200
+                 iterations of LEAD on its default (tree) engine and the flat
+                 one, flat LEAD on the Theorem-2 schedule, and the tree NIDS,
+                 DGD, CHOCO, QDGD and DeepSqueeze; the reference's ordering
+                 checked, tree LEAD through K4 and K2 once per step and flat
+                 LEAD through K1-K3, and NIDS and DGD held against the same
+                 runs (the same batch indices) on the CPU
+  faults_at_scale
+                 fault injection at the real size (lead_at_scale's objective,
+                 one warm-up step, 20 steps): flat LEAD under an inactive
+                 fault model (its trace must be lead_at_scale's, bit for
+                 bit), under 10% link drops on dense and on neighbor gossip,
+                 and clean on neighbor gossip; flat CHOCO on neighbor gossip,
+                 clean and under agent outages served from the stale cache;
+                 the fault fields held to the CPU's step_metrics, each
+                 faulted run's device stage sum within 15% of its clean
+                 twin's; then uncompressed faulted LEAD at d = 2,048 on the
+                 card against the same run on the CPU
+  oracle_at_scale
+                 the noisy oracle at the real size: flat LEAD through
+                 run(noise_std=0.1) for 20 steps (dist falls 10x), and one
+                 seed's Gaussian plane on the card within 4 ulp of the CPU's
 
 The line before the last lists every kernel with its launches on the main
 path, its error against the plain version and its times; the last line is
@@ -164,6 +187,37 @@ TREE_RUNS = {
 TREE_STAGES = {"gradient": "gradient", "message": "message",
                "mix": "dense_mix", "update": "update",
                "comp_err": "comp_err", "metrics": "metrics"}
+
+
+# Fig. 3: benchmarks/bench_logreg.py's fig3_het_minibatch (Fig. 2's problem
+# and hypers, minibatch gradients of 64 samples, 200 iterations); LEAD on
+# its default (tree) engine and the flat one, flat LEAD on the Theorem-2
+# schedule eta / (1 + 0.01 k), and the tree baselines
+FIG3_ITERS = 200
+FIG3_BATCH = 64
+FIG3_COMPRESSED = ("choco", "qdgd", "deepsqueeze")
+
+# faults_at_scale: lead_at_scale's objective and hypers; the fault models
+# of the reference's measurements (10% link drops; 20% agent outages in
+# windows of 5 steps served from the stale cache) and an inactive model
+LEAD_HYPER = dict(eta=0.5, gamma=1.0, alpha=0.5)
+LINK_DROP = dict(seed=0, link_drop=0.1)
+STALE = dict(seed=6, agent_drop=0.2, dropout_window=5, policy="stale")
+# run: (algorithm, gossip, fault model or None, its clean twin)
+# (each twin runs before the runs held against it)
+FAULT_RUNS = {
+    "lead_inactive": ("lead", "dense", dict(seed=0), None),
+    "lead_faulted_dense": ("lead", "dense", LINK_DROP, "lead_inactive"),
+    "lead_clean_neighbor": ("lead", "neighbor", None, None),
+    "lead_faulted_neighbor": ("lead", "neighbor", LINK_DROP,
+                              "lead_clean_neighbor"),
+    "choco_clean_neighbor": ("choco", "neighbor", None, None),
+    "choco_stale_neighbor": ("choco", "neighbor", STALE,
+                             "choco_clean_neighbor"),
+}
+TWIN_RTOL = 0.15            # faulted stage sum within 15% of its twin's
+SMALL_FAULT_D = 2048        # the faulted run held against the CPU
+ORACLE_NOISE = 0.1
 
 
 def choco_compressor(wire):
@@ -278,8 +332,9 @@ class Quadratic:
     """f_i(x) = 0.5 ||x - t_i||^2, x* = mean_i t_i: the objective that
     benchmarks/bench_lead_step.py drives at scale (a local copy)."""
 
-    def __init__(self, gen, n, d, device):
-        self.T = torch.randn((n, d), generator=gen, device=device)
+    def __init__(self, gen, n, d, device, targets=None):
+        self.T = (torch.randn((n, d), generator=gen, device=device)
+                  if targets is None else targets.to(device))
         self.n, self.d = n, d
         self.x_star = self.T.mean(0)
 
@@ -714,7 +769,7 @@ def phase_headline(dev):
     x_star = prob.x_star
 
     lead = LEADSim(topology=topo, compressor=QuantizePNorm(bits=2), eta=eta,
-                   device=dev)
+                   engine="flat", device=dev)
     cuda_lib.reset_launch_counts()
     tr = run(lead, prob, x_star, iters=300)
     launches = cuda_lib.launch_counts()
@@ -732,7 +787,8 @@ def phase_headline(dev):
     # JAX reference
     cpu_prob = LinearRegression.from_arrays(prob.A, prob.b, prob.lam,
                                             device="cpu")
-    runs = [run(LEADSim(topology=topo, eta=eta, device=p.A.device), p,
+    runs = [run(LEADSim(topology=topo, eta=eta, engine="flat",
+                        device=p.A.device), p,
                 x_star.to(p.A.device), iters=100)
             for p in (prob, cpu_prob)]
     # dist falls ~9 decades in 100 steps, below which f32 rounding of the
@@ -756,7 +812,7 @@ def phase_lead_at_scale(dev):
     hyper = dict(eta=0.5, gamma=1.0, alpha=0.5)
     prob = Quadratic(torch.Generator(dev).manual_seed(0), n, d, dev)
     lead = LEADSim(topology=topology.ring(n), compressor=QuantizePNorm(bits=2),
-                   device=dev, **hyper)
+                   engine="flat", device=dev, **hyper)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launch_counts()
@@ -786,7 +842,7 @@ def phase_lead_at_scale(dev):
           "dist": [tr.dist[0], tr.dist[-1]],
           "consensus": [tr.consensus[0], tr.consensus[-1]],
           "loss": [tr.loss[0], tr.loss[-1]], "comp_err_last": tr.comp_err[-1]})
-    return launches
+    return launches, tr
 
 
 def phase_fig2(dev):
@@ -812,7 +868,7 @@ def phase_fig2(dev):
     def algo(name, device):
         if name == "lead":
             return LEADSim(topology=topo, compressor=q2, eta=FIG2_ETA,
-                           device=device)
+                           engine="flat", device=device)
         return engine_for(topo, None if is_exact(name) else q2, prob.d,
                           algorithm=name, eta=FIG2_ETA, device=device,
                           **FIG2[name])
@@ -1090,6 +1146,289 @@ def phase_tree_at_scale(dev):
     return launches
 
 
+def phase_fig3(dev):
+    """The paper's Fig. 3 on the card (benchmarks/bench_logreg.py's
+    fig3_het_minibatch) on the port's own problem: Fig. 2's logistic
+    regression with minibatch gradients of 64 samples, 200 iterations of
+    each run through run(stochastic=True)."""
+    from repro_torch.core import baselines, topology
+    from repro_torch.core.compression import QuantizePNorm
+    from repro_torch.core.convex import LogisticRegression
+    from repro_torch.core.gossip import DenseGossip
+    from repro_torch.core.simulator import LEADSim, run
+    from repro_torch.kernels import cuda_lib
+
+    prob = LogisticRegression.generate(torch.Generator(dev).manual_seed(1),
+                                       n_agents=8, m_per_agent=256, d=784,
+                                       n_classes=10, heterogeneous=True,
+                                       device=dev)
+    check(prob.d == FIG2_D, f"fig3: d = {prob.d}")
+    x_star = prob.solve_x_star(iters=800)
+    q2, eta = QuantizePNorm(bits=2, block=512), FIG2_ETA
+
+    def algo(name, device):
+        g = DenseGossip.from_topology(topology.ring(8), device)
+        return {
+            "lead": lambda: LEADSim(gossip=g, compressor=q2, eta=eta),
+            "lead_flat": lambda: LEADSim(gossip=g, compressor=q2, eta=eta,
+                                         engine="flat"),
+            "lead_flat_thm2": lambda: LEADSim(
+                gossip=g, compressor=q2, engine="flat",
+                eta=lambda k: eta / (1.0 + 0.01 * k)),
+            "nids": lambda: baselines.NIDS(gossip=g, eta=eta),
+            "dgd": lambda: baselines.DGD(gossip=g, eta=eta),
+            "choco": lambda: baselines.CHOCO_SGD(gossip=g, compressor=q2,
+                                                 eta=eta, gamma=0.6),
+            "deepsqueeze": lambda: baselines.DeepSqueeze(
+                gossip=g, compressor=q2, eta=eta, gamma=0.4),
+            "qdgd": lambda: baselines.QDGD(gossip=g, compressor=q2, eta=eta,
+                                           gamma=0.4),
+        }[name]()
+
+    names = ("lead", "lead_flat", "lead_flat_thm2", "nids", "dgd", "choco",
+             "qdgd", "deepsqueeze")
+    tr, launches = {}, {}
+    for name in names:
+        cuda_lib.reset_launch_counts()
+        tr[name] = run(algo(name, dev), prob, x_star, iters=FIG3_ITERS,
+                       stochastic=True, batch=FIG3_BATCH)
+        launches[name] = cuda_lib.launch_counts()
+        check(all(np.isfinite(a).all() for a in tr[name]),
+              f"fig3: {name} non-finite")
+    wire = {"quantize_encode": FIG3_ITERS, "quantize_decode": FIG3_ITERS}
+    expect_launches(launches["lead"], wire, "fig3 lead (tree)")
+    for name in ("lead_flat", "lead_flat_thm2"):
+        expect_launches(launches[name],
+                        dict.fromkeys(LEAD_KERNELS, FIG3_ITERS),
+                        f"fig3 {name}")
+    for name in FIG3_COMPRESSED:
+        expect_launches(launches[name], wire, f"fig3 {name}")
+    for name in ("nids", "dgd"):
+        expect_launches(launches[name], {}, f"fig3 {name}")
+
+    final = {k: {"dist": t.dist[-1], "consensus": t.consensus[-1]}
+             for k, t in tr.items()}
+    for lead in ("lead", "lead_flat"):
+        got = final[lead]
+        check(got["dist"] <= 1.05 * final["nids"]["dist"],
+              f"fig3: {lead} dist {got['dist']} > 1.05 x NIDS's "
+              f"{final['nids']['dist']}")
+        for name in ("dgd",) + FIG3_COMPRESSED:
+            check(got["dist"] < final[name]["dist"],
+                  f"fig3: {lead} dist {got['dist']} not below {name}'s "
+                  f"{final[name]['dist']}")
+            if name != "dgd":
+                check(10 * got["consensus"] <= final[name]["consensus"],
+                      f"fig3: {lead} consensus {got['consensus']} not 10x "
+                      f"below {name}'s {final[name]['consensus']}")
+
+    # the exact runs on the card against the same runs on the CPU: the
+    # batch indices are the same integers on both (the counter hash)
+    cpu_prob = LogisticRegression.from_arrays(prob.feats, prob.labels,
+                                              prob.n_classes, prob.lam,
+                                              device="cpu")
+    gaps = {name: trace_gap(tr[name], run(algo(name, "cpu"), cpu_prob,
+                                          x_star.cpu(), iters=FIG3_ITERS,
+                                          stochastic=True, batch=FIG3_BATCH),
+                            f"fig3: {name}")
+            for name in ("nids", "dgd")}
+    emit({"phase": "fig3", "n": prob.n, "d": prob.d, "iters": FIG3_ITERS,
+          "batch": FIG3_BATCH, "eta": eta, "final": final,
+          "lead_consensus_below": {k: final[k]["consensus"]
+                                   / final["lead"]["consensus"]
+                                   for k in FIG3_COMPRESSED},
+          "launches": {k: {n: c for n, c in v.items() if c}
+                       for k, v in launches.items()},
+          "exact_cuda_vs_cpu": gaps})
+    return launches
+
+
+def fault_metrics_on_cpu(model, topo, iters):
+    """The Trace's fault fields for `iters` steps from nothing but the
+    model and the graph, on the CPU: step_metrics at each step k, with the
+    staleness ages replayed from broadcast_ok."""
+    from repro_torch.core import faults
+
+    age = torch.zeros(topo.n, dtype=torch.int32)
+    rows = []
+    for k in range(iters):
+        ok = model.broadcast_ok(k, topo.n, device="cpu")
+        age = torch.where(ok, torch.zeros_like(age), age + 1)
+        rows.append([float(v) for v in faults.step_metrics(model, topo, k,
+                                                           age)])
+    return {f: np.array(col) for f, col in zip(
+        ("dropped_links", "realized_gap", "staleness_mean", "staleness_max"),
+        zip(*rows))}
+
+
+def phase_faults_at_scale(dev, clean_trace):
+    """Fault injection at the real size: n = 8 ring, d = 2^25 per agent,
+    lead_at_scale's objective, one warm-up step, then 20 steps through
+    run() of each FAULT_RUNS entry; then a small uncompressed faulted run
+    on the card held against the CPU."""
+    from repro_torch.core import faults, topology
+    from repro_torch.core.compression import QuantizePNorm
+    from repro_torch.core.engines import engine_for
+    from repro_torch.core.simulator import LEADSim, run
+    from repro_torch.kernels import cuda_lib
+
+    n, d, iters = 8, D_SCALE, 20
+    prob = Quadratic(torch.Generator(dev).manual_seed(0), n, d, dev)
+    topo = topology.ring(n)
+    q2 = QuantizePNorm(bits=2)
+    launches, sums = {}, {}
+    for name, (alg_name, gossip, model, twin) in FAULT_RUNS.items():
+        fm = None if model is None else faults.FaultModel(**model)
+        active = fm is not None and fm.is_active
+        mix = {"mix": f"{'faulted_' if active else ''}{gossip}_mix"}
+        if alg_name == "lead":
+            alg = LEADSim(topology=topo, compressor=q2, engine="flat",
+                          engine_gossip=gossip, faults=fm, device=dev,
+                          **LEAD_HYPER)
+            kernels, names = LEAD_KERNELS, {**STAGE_NAMES, **mix}
+        else:
+            gamma, kernels, wire_names = CHOCO_WIRES["pinf_2bit"]
+            alg = engine_for(topo, q2, d, algorithm="choco", gossip=gossip,
+                             eta=CHOCO_ETA, gamma=gamma, faults=fm,
+                             device=dev)
+            names = {**CHOCO_STAGES, **wire_names, **mix}
+        run(alg, prob, prob.x_star, iters=1)           # warm-up step
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = run(alg, prob, prob.x_star, iters=iters)  # ends in one .cpu()
+        wall = time.perf_counter() - t0
+        launches[name] = cuda_lib.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        what = f"faults_at_scale {name}"
+        expect_launches(launches[name], dict.fromkeys(kernels, iters), what)
+        check(all(np.isfinite(a).all() for a in tr), f"{what}: non-finite")
+        out = {}
+        if active:
+            check(tr.dist[-1] < tr.dist[0] or alg_name == "choco",
+                  f"{what}: dist {tr.dist[0]} -> {tr.dist[-1]}")
+            want = fault_metrics_on_cpu(fm, topo, iters)
+            for f in ("dropped_links", "staleness_mean", "staleness_max"):
+                check(np.array_equal(getattr(tr, f), want[f]),
+                      f"{what}: {f} {getattr(tr, f)} != the CPU's {want[f]}")
+            gap = float(np.max(np.abs(tr.realized_gap
+                                      - want["realized_gap"])))
+            check(gap <= 1e-6, f"{what}: realized_gap off the CPU's by {gap}")
+            out = {"dropped_links_total": float(tr.dropped_links.sum()),
+                   "realized_gap_mean": float(tr.realized_gap.mean()),
+                   "realized_gap_vs_cpu": gap,
+                   "staleness_max": float(tr.staleness_max.max())}
+            if fm.policy == "stale":
+                check(tr.staleness_max.max() >= 5,
+                      f"{what}: staleness_max {tr.staleness_max.max()} < 5")
+        elif fm is not None:                           # inactive model
+            for f in clean_trace._fields:
+                check(np.array_equal(getattr(tr, f),
+                                     getattr(clean_trace, f)),
+                      f"{what}: {f} differs from lead_at_scale's trace")
+            out = {"equals_lead_at_scale": True}
+        breakdown = stage_breakdown(
+            lambda: run(alg, prob, prob.x_star, iters=6), dev, names, what)
+        sums[name] = sum(breakdown.values())
+        if twin is not None:
+            ratio = sums[name] / sums[twin]
+            out["stage_sum_over_twin"] = ratio
+            check(abs(ratio - 1) <= TWIN_RTOL,
+                  f"{what}: device stage sum {sums[name]} ms is not within "
+                  f"{TWIN_RTOL:.0%} of {twin}'s {sums[twin]}")
+        emit({"phase": "faults_at_scale", "run": name, "algorithm": alg_name,
+              "gossip": gossip, "faults": model, "n": n, "d": d,
+              "iters": iters, "ms_per_step": wall * 1e3 / iters,
+              "breakdown_ms": breakdown, "breakdown_total_ms": sums[name],
+              "max_memory_allocated_GB": peak / 1e9,
+              "launches": launches[name],
+              "dist": [tr.dist[0], tr.dist[-1]],
+              "consensus": [tr.consensus[0], tr.consensus[-1]], **out})
+        del alg, tr
+    del prob
+    torch.cuda.empty_cache()
+
+    # uncompressed faulted LEAD at a small width on the card against the
+    # same run on the CPU (which the CPU tests hold against the reference),
+    # as headline does for the clean run
+    T = 100.0 * torch.randn((n, SMALL_FAULT_D),
+                            generator=torch.Generator().manual_seed(0))
+    fm = faults.FaultModel(**LINK_DROP)
+    runs = [run(LEADSim(topology=topo, eta=0.5, engine="flat", faults=fm,
+                        device=device),
+                prob_d, prob_d.x_star, iters=100)
+            for device, prob_d in ((dev, Quadratic(None, n, SMALL_FAULT_D,
+                                                   dev, T)),
+                                   ("cpu", Quadratic(None, n, SMALL_FAULT_D,
+                                                     "cpu", T)))]
+    gap = trace_gap(runs[0], runs[1], "faults_at_scale: small faulted LEAD")
+    for f in ("dropped_links", "staleness_mean", "staleness_max"):
+        check(np.array_equal(getattr(runs[0], f), getattr(runs[1], f)),
+              f"faults_at_scale small run: {f} differs from the CPU's")
+    emit({"phase": "faults_at_scale", "run": "small_cuda_vs_cpu",
+          "d": SMALL_FAULT_D, "iters": 100, "faults": LINK_DROP,
+          "dist": [runs[0].dist[0], runs[0].dist[-1]], "cuda_vs_cpu": gap})
+    return launches
+
+
+def phase_oracle_at_scale(dev):
+    """The noisy oracle at the real size: flat 2-bit LEAD, n = 8 ring,
+    d = 2^25, lead_at_scale's objective and hypers, run(noise_std=0.1) for
+    20 steps; then one seed's noise plane on the card against the CPU's."""
+    from repro_torch.core import topology
+    from repro_torch.core.compression import QuantizePNorm, fast_normal
+    from repro_torch.core.simulator import LEADSim, run
+    from repro_torch.kernels import cuda_lib
+
+    n, d, iters = 8, D_SCALE, 20
+    prob = Quadratic(torch.Generator(dev).manual_seed(0), n, d, dev)
+    lead = LEADSim(topology=topology.ring(n), compressor=QuantizePNorm(bits=2),
+                   engine="flat", device=dev, **LEAD_HYPER)
+    run(lead, prob, prob.x_star, iters=1, noise_std=ORACLE_NOISE)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr = run(lead, prob, prob.x_star, iters=iters, noise_std=ORACLE_NOISE)
+    wall = time.perf_counter() - t0
+    launches = cuda_lib.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(launches, dict.fromkeys(LEAD_KERNELS, iters),
+                    "oracle_at_scale")
+    check(all(np.isfinite(a).all() for a in tr), "oracle_at_scale: non-finite")
+    check(tr.dist[-1] <= 0.1 * tr.dist[0],
+          f"oracle_at_scale: dist {tr.dist[0]} -> {tr.dist[-1]}, not 10x")
+    breakdown = stage_breakdown(
+        lambda: run(lead, prob, prob.x_star, iters=6, noise_std=ORACLE_NOISE),
+        dev, STAGE_NAMES, "oracle_at_scale")
+    del prob
+    torch.cuda.empty_cache()
+
+    # the noise plane of one seed: the uniforms are the same bits on both,
+    # the normals agree within 4 ulp (log and cos are not correctly rounded)
+    t1 = time.perf_counter()
+    card = fast_normal((n, d), 12345, device=dev).cpu()
+    cpu = fast_normal((n, d), 12345, device="cpu")
+    ulp = torch.nextafter(cpu.abs(), torch.tensor(float("inf"))) - cpu.abs()
+    ulps = float(((card - cpu).abs() / ulp).max())
+    n_diff = int((card != cpu).sum())
+    check(ulps <= 4.0, f"oracle_at_scale: noise plane {ulps} ulp off the CPU's")
+    emit({"phase": "oracle_at_scale", "n": n, "d": d, "iters": iters,
+          "noise_std": ORACLE_NOISE, "ms_per_step": wall * 1e3 / iters,
+          "breakdown_ms": breakdown,
+          "breakdown_total_ms": sum(breakdown.values()),
+          "max_memory_allocated_GB": peak / 1e9, "launches": launches,
+          "dist": [tr.dist[0], tr.dist[-1]],
+          "consensus": [tr.consensus[0], tr.consensus[-1]],
+          "noise_plane_max_ulp": ulps, "noise_plane_elements_differing":
+          n_diff, "noise_plane_check_s": time.perf_counter() - t1})
+    del card, cpu, ulp
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1119,9 +1458,12 @@ def main():
     headline = phase_headline(dev)
     fig2 = phase_fig2(dev)
     fig1 = phase_fig1(dev)
-    lead_at_scale = phase_lead_at_scale(dev)
+    lead_at_scale, lead_trace = phase_lead_at_scale(dev)
     baselines = phase_baselines_at_scale(dev)
     tree = phase_tree_at_scale(dev)
+    fig3 = phase_fig3(dev)
+    faulted = phase_faults_at_scale(dev, lead_trace)
+    oracle = phase_oracle_at_scale(dev)
     # launches: each kernel's count on its path at the real size (LEAD's for
     # K1-K3, CHOCO's wire for K4-K6), each path run with the counts at 0
     at_scale = {"quantize_encode": baselines["pinf_2bit"],
@@ -1135,7 +1477,10 @@ def main():
             "fig2": sum(v[k] for v in fig2.values()),
             "fig1": sum(v[k] for v in fig1.values()),
             **{f"baselines_at_scale/{w}": v[k] for w, v in baselines.items()},
-            **{f"tree_at_scale/{w}": v[k] for w, v in tree.items()}}
+            **{f"tree_at_scale/{w}": v[k] for w, v in tree.items()},
+            "fig3": sum(v[k] for v in fig3.values()),
+            **{f"faults_at_scale/{w}": v[k] for w, v in faulted.items()},
+            "oracle_at_scale": oracle[k]}
         if k in hot_path:
             r["hot_path_512"] = hot_path[k]
     print(smi, flush=True)

@@ -90,14 +90,15 @@ def sub_seed(seed: int, j: int) -> int:
     return _mix32(_mix32(seed) * 0x9E3779B9 + j)
 
 
-def fast_uniform(shape, seed, device: DeviceLike = None) -> torch.Tensor:
-    """Counter-based U[0,1) dither: the murmur3-style integer finalizer of
+def counter_bits(shape, seed, device: DeviceLike = None) -> torch.Tensor:
+    """The 24-bit integers (int64, in [0, 2^24)) under ``fast_uniform``:
+    the murmur3-style integer finalizer of
     ``src/repro/core/engines/base.py::fast_uniform`` over an iota, keyed by
     a uint32 seed (an int, or a 0-d integer tensor on the target device).
-    Bit for bit the reference's stream: the uint32 arithmetic runs in int64
-    masked to 32 bits (int64 products wrap modulo 2^64, so their low 32 bits
-    are the uint32 product's).  Updates in place to hold the temporaries
-    to two int64 planes."""
+    Bit for bit the reference's stream, on the CPU and the card alike: the
+    uint32 arithmetic runs in int64 masked to 32 bits (int64 products wrap
+    modulo 2^64, so their low 32 bits are the uint32 product's).  Updates
+    in place to hold the temporaries to two int64 planes."""
     m = 1
     for s in shape:
         m *= int(s)
@@ -117,10 +118,30 @@ def fast_uniform(shape, seed, device: DeviceLike = None) -> torch.Tensor:
     z &= _MASK32
     z ^= z >> 16
     z >>= 8
-    # top 24 bits -> [0, 1) with full f32 mantissa coverage
+    return z.reshape(shape)
+
+
+def fast_uniform(shape, seed, device: DeviceLike = None) -> torch.Tensor:
+    """Counter-based U[0,1) dither: ``counter_bits`` (the top 24 bits of
+    the reference's counter hash) over 2^24, so the f32 mantissa covers
+    them exactly."""
+    z = counter_bits(shape, seed, device)
     u = z.to(torch.float32)
     del z
-    return u.mul_(1.0 / (1 << 24)).reshape(shape)
+    return u.mul_(1.0 / (1 << 24))
+
+
+def fast_normal(shape, seed, device: DeviceLike = None) -> torch.Tensor:
+    """Standard normal f32 draws from the counter hash by Box-Muller: one
+    ``fast_uniform`` plane of shape (2, *shape), u1 = 1 - u[0] in
+    (0, 1] (so the log never sees 0) and u2 = u[1],
+    sqrt(-2 log u1) * cos(2 pi u2).  The uniforms are bit for bit the same
+    on the CPU and the card; log and cos are not correctly rounded, so
+    the normals agree there within a few ulp."""
+    u = fast_uniform((2,) + tuple(shape), seed, device)
+    r = u[0].neg_().add_(1.0).log_().mul_(-2.0).sqrt_()
+    c = u[1].mul_(2.0 * math.pi).cos_()
+    return torch.mul(r, c)
 
 
 def rel_err(q: torch.Tensor, target: torch.Tensor,

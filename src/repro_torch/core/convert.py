@@ -1,4 +1,4 @@
-"""Carry a reference state or problem across to the port.
+"""Carry a reference state, fault state or problem across to the port.
 
 The reference's engine states are NamedTuples of arrays; ``np.asarray`` of
 each field is the common currency the parity tests feed both packages.
@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.convex import LinearRegression, LogisticRegression
+from repro_torch.core.faults import FaultState
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -31,6 +32,22 @@ def state_from_numpy(state_cls, arrays, device: DeviceLike = None):
         fields[name] = torch.tensor(np.asarray(arrays[name]), dtype=dtype,
                                     device=dev)
     return state_cls(**fields)
+
+
+def fault_state_from_numpy(arrays, device: DeviceLike = None) -> FaultState:
+    """The port's FaultState on `device` from the reference's (a
+    NamedTuple, a mapping or a (cache, age) sequence): cache as f32, age
+    as int32, both copied."""
+    dev = resolve_device(device)
+    if hasattr(arrays, "_asdict"):
+        arrays = arrays._asdict()
+    if not isinstance(arrays, Mapping):
+        arrays = dict(zip(FaultState._fields, arrays))
+    return FaultState(
+        cache=torch.tensor(np.asarray(arrays["cache"]), dtype=torch.float32,
+                           device=dev),
+        age=torch.tensor(np.asarray(arrays["age"]), dtype=torch.int32,
+                         device=dev))
 
 
 def problem_from_numpy(A, b, lam: float,

@@ -8,12 +8,17 @@
 
 Objectives expose:
     full_grad(X)            (n, d)->(n, d)   per-agent full-batch gradients
+    minibatch_grad(X, idx)  stochastic gradients over the (n, batch) sample
+                            indices idx (the paper's mini-batch setting)
     loss(X)                 mean of local losses at the agent-local iterates
     x_star / solve_x_star   the global optimizer (closed form / by descent)
     mu_L                    strong-convexity / smoothness constants (linreg)
 
-All arithmetic is float32, as in the reference.  The minibatch oracle
-(``minibatch_grad``) is not ported yet.
+All arithmetic is float32, as in the reference.  The reference draws its
+batch indices from a threefry key; here ``batch_indices`` draws them from
+the counter hash (core/compression.py ``counter_bits``), as integers, bit
+for bit the same on the CPU and the card.  ``minibatch_grad`` takes them
+as an argument, or draws them for a seed.
 """
 from __future__ import annotations
 
@@ -22,7 +27,22 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.compression import counter_bits
 from repro_torch.device import DeviceLike, resolve_device
+
+
+def batch_indices(n: int, batch: int, m: int, seed: int,
+                  device: DeviceLike = None) -> torch.Tensor:
+    """(n, batch) int64 sample indices, uniform over [0, m) with
+    replacement per agent: each of the counter hash's 24-bit draws h
+    (seeded `seed`) maps to floor(h * m / 2^24), in integer arithmetic."""
+    h = counter_bits((n, batch), seed, device)
+    return (h * m) >> 24
+
+
+def _rows_at(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """a[i, idx[i]] for every agent i: (n, m, ...) -> (n, batch, ...)."""
+    return a[torch.arange(a.shape[0], device=a.device)[:, None], idx]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,10 +91,33 @@ class LinearRegression:
     def d(self):
         return self.A.shape[2]
 
+    @property
+    def m(self):
+        """Samples per agent."""
+        return self.A.shape[1]
+
+    def local_grad(self, i: int, x):
+        """Agent i's full gradient at x (d,)."""
+        Ai, bi = self.A[i], self.b[i]
+        return 2.0 * Ai.T @ (Ai @ x - bi) + 2.0 * self.lam * x
+
     def full_grad(self, X):
         """X: (n, d) -> per-agent gradients (n, d)."""
         r = torch.einsum("nmd,nd->nm", self.A, X) - self.b
         return 2.0 * torch.einsum("nmd,nm->nd", self.A, r) + 2.0 * self.lam * X
+
+    def minibatch_grad(self, X, idx=None, *, batch=32, seed: int = 0):
+        """Per-agent stochastic gradients over the (n, batch) sample
+        indices `idx` (drawn by ``batch_indices`` for `seed` when None):
+        the batch's sum scaled by m / batch, plus the full regularizer."""
+        n, m, d = self.A.shape
+        if idx is None:
+            idx = batch_indices(n, batch, m, seed, X.device)
+        batch = idx.shape[1]
+        Ab, bb = _rows_at(self.A, idx), _rows_at(self.b, idx)
+        r = torch.einsum("nmd,nd->nm", Ab, X) - bb
+        return 2.0 * (m / batch) * torch.einsum("nmd,nm->nd", Ab, r) \
+            + 2.0 * self.lam * X
 
     def loss(self, X):
         r = torch.einsum("nmd,nd->nm", self.A, X) - self.b
@@ -169,15 +212,34 @@ class LogisticRegression:
     def _unflatten(self, X):
         return X.reshape(X.shape[0], self.feats.shape[2], self.n_classes)
 
-    def full_grad(self, X):
-        """X: (n, d) -> per-agent gradients (n, d), analytically:
-        feats^T (softmax(logits) - onehot(labels)) / m + lam w."""
+    @property
+    def m(self):
+        """Samples per agent."""
+        return self.feats.shape[1]
+
+    def _grad(self, X, feats, labels):
+        """Per-agent gradients of the mean loss over (feats, labels),
+        analytically: feats^T (softmax(logits) - onehot(labels)) / m
+        + lam w."""
         W = self._unflatten(X)
-        p = torch.softmax(torch.bmm(self.feats, W), dim=-1)     # (n, m, c)
-        p = p - torch.nn.functional.one_hot(self.labels,
+        p = torch.softmax(torch.bmm(feats, W), dim=-1)          # (n, m, c)
+        p = p - torch.nn.functional.one_hot(labels,
                                             self.n_classes).to(p.dtype)
-        g = torch.bmm(self.feats.transpose(1, 2), p) / self.feats.shape[1]
+        g = torch.bmm(feats.transpose(1, 2), p) / feats.shape[1]
         return (g + self.lam * W).reshape(X.shape)
+
+    def full_grad(self, X):
+        """X: (n, d) -> per-agent gradients (n, d)."""
+        return self._grad(X, self.feats, self.labels)
+
+    def minibatch_grad(self, X, idx=None, *, batch=64, seed: int = 0):
+        """Per-agent gradients of the batch-mean loss (plus the full
+        regularizer) over the (n, batch) sample indices `idx` (drawn by
+        ``batch_indices`` for `seed` when None)."""
+        if idx is None:
+            idx = batch_indices(self.n, batch, self.m, seed, X.device)
+        return self._grad(X, _rows_at(self.feats, idx),
+                          _rows_at(self.labels, idx))
 
     def loss(self, X):
         W = self._unflatten(X)

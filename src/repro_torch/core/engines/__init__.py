@@ -97,10 +97,9 @@ def engine_for(topology, compressor, dim: int, dither: str = "fast",
     quantizers through their encode_blocks wire.  An object without that
     protocol is rejected.  `hyper` forwards the algorithm's
     hyper-parameters (eta/gamma/alpha for LEAD, eta/gamma for the
-    baselines), each a Schedule.  Fault injection is not ported yet."""
-    if faults is not None:
-        raise NotImplementedError("fault injection is not ported yet "
-                                  "(ROADMAP.md, 'Modules still to port')")
+    baselines), each a Schedule.  `faults` attaches a
+    core/faults.FaultModel: run() then takes the engine's faulted wire
+    (step_with_wire_faulted); None leaves the clean path untouched."""
     cls = _lookup(algorithm)
     if isinstance(compressor, Identity):
         compressor = None
@@ -113,7 +112,8 @@ def engine_for(topology, compressor, dim: int, dither: str = "fast",
             "decode_blocks flat wire protocol")
     block = getattr(compressor, "block", DEFAULT_BLOCK)
     return cls(topology=topology, dim=dim, compressor=compressor, block=block,
-               gossip=gossip, dither=dither, device=device, **hyper)
+               gossip=gossip, dither=dither, faults=faults, device=device,
+               **hyper)
 
 
 # tree algorithm class name -> registry key of its flat twin

@@ -44,10 +44,17 @@ draws it from the same counter-hash stream, so those wires match the
 reference in distribution, and draw for draw when the reference's draws
 are injected (the parity tests do).
 
+Fault injection (``faults=``, a core/faults.FaultModel) reroutes the wire
+through ``mix_payload_faulted``: the same encode, then a degraded mix under
+the step's link mask (renormalized weights or the stale cache), with a
+FaultState carried from step to step (``step_with_wire_faulted``).  The
+mask is a counter hash of (seed, step, edge) computed on the state's
+device, so a faulted step makes no host sync either.
+
 Not ported yet (each raises NotImplementedError): ``dither="match"`` (the
-reference's threefry stream cannot be reproduced in torch), fault
-injection, time-varying banks, ``gossip="hier"``, communication intervals
-and, with them, the baselines' ``local_stage``.
+reference's threefry stream cannot be reproduced in torch), time-varying
+banks, ``gossip="hier"``, communication intervals and, with them, the
+baselines' ``local_stage``.
 """
 from __future__ import annotations
 
@@ -57,6 +64,7 @@ from typing import Any, ClassVar, Dict
 import numpy as np
 import torch
 
+from repro_torch.core import faults as faults_mod
 from repro_torch.core import topology as topology_mod
 from repro_torch.core.compression import (Identity, QuantizePNorm, TopK,
                                           _flat_to_rows, _is_inf,
@@ -106,6 +114,7 @@ class FlatEngineBase:
     block: int = DEFAULT_BLOCK
     gossip: str = "dense"              # "dense" | "neighbor" | "ring" alias
     dither: str = "fast"               # the counter-hash dither stream
+    faults: Any = None                 # core/faults.FaultModel (None = clean)
     device: DeviceLike = None          # None -> "cuda"
 
     state_cls: ClassVar[type] = None
@@ -132,6 +141,10 @@ class FlatEngineBase:
                 "dither='fast', the reference's counter-hash stream")
         if self.dither != "fast":
             raise ValueError(f"dither must be 'fast', got {self.dither!r}")
+        if self.faults is not None and not isinstance(self.faults,
+                                                      faults_mod.FaultModel):
+            raise TypeError(f"faults must be a core/faults.FaultModel, got "
+                            f"{self.faults!r}")
         # the dense W serves gossip="dense" and the init-time mix (H_w = W H)
         object.__setattr__(self, "_dense", DenseGossip.from_topology(
             self.topology, self.device))
@@ -283,6 +296,43 @@ class FlatEngineBase:
         mark("mix")
         return q, wq
 
+    # -- fault injection -----------------------------------------------------
+    def init_fault_state(self, state) -> faults_mod.FaultState:
+        """Fresh FaultState (stale cache and staleness ages) for a run of
+        this engine, carried beside the engine state by run()."""
+        if self.faults is None:
+            raise ValueError("the engine has no FaultModel attached")
+        return faults_mod.init_fault_state(self.faults, state.x)
+
+    def mix_payload_faulted(self, payload, decode, k: torch.Tensor,
+                            fstate: faults_mod.FaultState):
+        """The communication stage under the engine's FaultModel:
+        (q, wq, new_fstate).  q is the clean own decode (an agent needs no
+        wire to read its own payload); wq the degraded mix, where a link
+        that did not deliver at step k is renormalized away
+        (policy="renormalize") or served from the sender's last good
+        broadcast (policy="stale").  Undetected corruption hits the wire
+        copy only, never q or the self column."""
+        fm = self.faults
+        q = decode(payload)
+        mark("decode")
+        q_tx = fm.corrupt_values(q, k)
+        cache = fstate.cache if fm.policy == "stale" else None
+        if self.gossip == "dense":
+            mask = fm.dense_mask(k, self.n)
+            wq = self._dense.mix_masked(q, mask, x_tx=q_tx, cache=cache)
+        else:
+            mask = fm.table_mask(k, self._neighbor.neighbors)
+            wq = self._neighbor.mix_masked(q, mask, x_tx=q_tx, cache=cache)
+        ok = fm.broadcast_ok(k, self.n)
+        age = torch.where(ok, torch.zeros_like(fstate.age), fstate.age + 1)
+        new_cache = fstate.cache
+        if fm.policy == "stale":
+            sel = ok.reshape((self.n,) + (1,) * (q.ndim - 1))
+            new_cache = torch.where(sel, q_tx, fstate.cache)
+        mark("mix")
+        return q, wq, faults_mod.FaultState(cache=new_cache, age=age)
+
     # -- the algorithm stage protocol ---------------------------------------
     def message(self, s, gb, hy):
         """Pre-communication math: (msg, ctx)."""
@@ -320,6 +370,18 @@ class FlatEngineBase:
         """(new_state, comp_err, wire_bits) with the engine's stored hypers
         resolved at state.k."""
         return self._step_core(state, g, seed, self.hypers_at(state.k))
+
+    def step_with_wire_faulted(self, state, fstate, g, seed: int):
+        """The faulted twin of step_with_wire: the same iteration, with the
+        communication stage through mix_payload_faulted and a FaultState
+        riding along.  Returns (new_state, new_fstate, comp_err,
+        wire_bits)."""
+        hy = self.hypers_at(state.k)
+        gb = self._blockify_g(g)
+        payload, decode, bits, ctx = self.encode_stage(state, gb, seed, hy)
+        q, wq, fs = self.mix_payload_faulted(payload, decode, state.k, fstate)
+        new, comp_err = self.apply_stage(state, gb, q, wq, hy, ctx)
+        return new, fs, comp_err, bits
 
     def x_of(self, state):
         """Current iterates as (n, d) regardless of the blocked layout."""

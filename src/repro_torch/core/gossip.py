@@ -15,7 +15,10 @@
   decode once, then roll the decoded buffer to the ring neighbours.
 
 DenseGossip and EncodedNeighborGossip hold their tables as tensors on one
-device, copied there once at construction.  The masked (fault) and
+device, copied there once at construction.  Both also have ``mix_masked``,
+the degraded mix under a core/faults.py link-survival mask (renormalized
+surviving weights, or the stale cache for dropped links), which the
+engines' fault layer uses (engines/base.py ``mix_payload_faulted``).  The
 time-varying (bank) forms and the hierarchical backend are not ported yet,
 nor is ``RingGossip``, the reference's collective-permute ring over a mesh
 axis (it belongs with the torch.distributed trainer).
@@ -27,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.faults import renormalize_dense, renormalize_table
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.utils.tree import Pytree, tree_leaves, tree_map
 
@@ -60,6 +64,36 @@ class DenseGossip:
         """(I - W) x, leaf-wise."""
         return tree_map(torch.subtract, tree, self.mix(tree))
 
+    def mix_masked(self, x: torch.Tensor, mask: torch.Tensor, *,
+                   x_tx: torch.Tensor = None,
+                   cache: torch.Tensor = None) -> torch.Tensor:
+        """Degraded ``W @ x`` under a link-survival mask (core/faults.py):
+        ``mask[i, j]`` says whether link i <- j delivered (the diagonal is
+        True).  With ``cache=None`` the surviving weights are renormalized
+        (a dropped link's weight moves to the self weight,
+        faults.renormalize_dense); with a cache buffer a dropped link is
+        served at full weight from the sender's last good broadcast (the
+        stale policy).  ``x_tx`` is the buffer as transmitted (corruption
+        hits the wire copy); the self column always reads the clean local
+        ``x``.  One (n, ...) buffer, not a pytree."""
+        W = self.W.to(x.dtype)
+        n = W.shape[0]
+        x_tx = x if x_tx is None else x_tx
+        off_diag = 1.0 - torch.eye(n, dtype=x.dtype, device=x.device)
+        shape = (-1,) + (1,) * (x.ndim - 1)
+
+        def matmul(M, b):
+            return (M @ b.reshape(n, -1)).reshape(b.shape)
+
+        if cache is None:
+            Wr = renormalize_dense(W, mask)
+            own = torch.diagonal(Wr).reshape(shape) * x
+            return own + matmul(Wr * off_diag, x_tx)
+        off = W * off_diag
+        own = torch.diagonal(W).reshape(shape) * x
+        return (own + matmul(off * mask, x_tx)
+                + matmul(off * ~mask, cache))
+
 
 @dataclasses.dataclass(frozen=True)
 class EncodedNeighborGossip:
@@ -89,6 +123,30 @@ class EncodedNeighborGossip:
         out = w[:, 0].reshape(shape) * x
         for j in range(self.neighbors.shape[1]):
             out = out + w[:, 1 + j].reshape(shape) * x[self.neighbors[:, j]]
+        return out
+
+    def mix_masked(self, x: torch.Tensor, mask: torch.Tensor, *,
+                   x_tx: torch.Tensor = None,
+                   cache: torch.Tensor = None) -> torch.Tensor:
+        """Degraded sparse mix under a (n, deg_max) link-survival mask
+        (core/faults.py; mask[i, j]: did neighbors[i, j] deliver to i).
+        ``cache=None`` renormalizes the surviving table weights
+        (faults.renormalize_table); a cache buffer instead serves a dropped
+        link at full weight from the sender's last good broadcast (the
+        stale policy).  ``x_tx`` is the as-transmitted buffer; the self
+        column reads the clean local ``x``.  The same column-at-a-time
+        accumulation as ``mix``."""
+        x_tx = x if x_tx is None else x_tx
+        shape = (-1,) + (1,) * (x.ndim - 1)
+        w = self.weights.to(x.dtype)
+        if cache is None:
+            w = renormalize_table(w, mask)
+        out = w[:, 0].reshape(shape) * x
+        for j in range(self.neighbors.shape[1]):
+            src = self.neighbors[:, j]
+            val = x_tx[src] if cache is None else torch.where(
+                mask[:, j].reshape(shape), x_tx[src], cache[src])
+            out = out + w[:, 1 + j].reshape(shape) * val
         return out
 
 

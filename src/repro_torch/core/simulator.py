@@ -14,12 +14,24 @@ The reference's ``lax.scan`` becomes a Python loop over device work: every
 metric is written into a preallocated device tensor and the trace crosses
 to the host once, at the end - no per-step host sync.
 
-LEADSim runs LEAD on one of two paths: engine="tree", the reference's
-pytree path (core/lead.py over a DenseGossip and the per-agent compress
-``vmap_compress``: the difference in plain torch, then the compressor's
-own compress), or engine="flat", the fused flat-buffer engine
-(core/engines/lead.py).  The stochastic and noisy gradient oracles and
-fault injection are not ported yet.
+LEADSim runs LEAD on one of two paths: engine="tree" (the default, as in
+the reference), the reference's pytree path (core/lead.py over a
+DenseGossip and the per-agent compress ``vmap_compress``: the difference in
+plain torch, then the compressor's own compress), or engine="flat", the
+fused flat-buffer engine (core/engines/lead.py).
+
+Gradient oracles: the full gradient, minibatch gradients
+(``stochastic=True``) or the full gradient plus Gaussian noise
+(``noise_std > 0``, which wins over ``stochastic``).  Their random input,
+batch indices or the noise plane, comes from one replaceable function,
+``oracle_draws``: the counter hash, seeded per step.  The parity tests
+replace it to hand the port the reference's threefry draws.
+
+Fault injection: an algorithm carrying an active core/faults.FaultModel
+(``LEADSim(engine="flat", faults=...)`` or ``engine_for(..., faults=...)``)
+is driven through the engine's faulted wire, and the Trace's four fault
+fields get the per-step fault metrics.  An inactive model (every rate 0)
+takes the clean path, bit for bit.
 """
 from __future__ import annotations
 
@@ -30,18 +42,22 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import faults as faults_mod
 from repro_torch.core import lead as lead_mod
 from repro_torch.core import topology as topology_mod
-from repro_torch.core.compression import compress_each, sub_seed
-from repro_torch.core.convex import consensus_error, distance_to_opt
+from repro_torch.core.compression import compress_each, fast_normal, sub_seed
+from repro_torch.core.convex import (batch_indices, consensus_error,
+                                     distance_to_opt)
 from repro_torch.core.engines import FlatLEADState, engine_for
 from repro_torch.core.engines.base import FlatEngineBase
 from repro_torch.core.gossip import DenseGossip
 from repro_torch.core.lead import LEADHyper
 from repro_torch.core.stage_timer import mark
 from repro_torch.device import DeviceLike
+from repro_torch.utils.finite import assert_finite_tree, finite_checks_enabled
 
-_LATER = "is not ported yet (ROADMAP.md, 'Modules still to port')"
+_MASK32 = 0xFFFFFFFF
+_ORACLE = 1                 # substream of a step's seed for the oracle
 
 
 def vmap_compress(compressor) -> Callable:
@@ -71,18 +87,20 @@ class LEADSim:
     core/topology.Topology or a raw mixing matrix) or the legacy ``gossip``
     (a DenseGossip); give exactly one.  engine="flat" drives the fused
     flat-buffer engine (core/engines/lead.py); engine="tree" the
-    reference's pytree path (core/lead.py), which needs a compressor
-    (Identity for an uncompressed wire).  engine_gossip selects the flat
-    engine's communication stage: "dense", "neighbor" or "ring".  dim and
-    device are bound by run() from the problem when left None; with
-    ``gossip=`` the device defaults to its W's.
+    reference's pytree path (core/lead.py; the default, as in the
+    reference), which needs a compressor (Identity for an uncompressed
+    wire).  engine_gossip selects the flat engine's communication stage:
+    "dense", "neighbor" or "ring".  faults attaches a core/faults.FaultModel
+    to the flat engine (the tree path has no faulted wire).  dim and device
+    are bound by run() from the problem when left None; with ``gossip=``
+    the device defaults to its W's.
     """
     topology: Any = None
     compressor: Any = None
     eta: Any = 0.1
     gamma: Any = 1.0
     alpha: Any = 0.5
-    engine: str = "flat"
+    engine: str = "tree"
     dither: str = "fast"
     engine_gossip: str = "dense"
     dim: Optional[int] = None
@@ -95,7 +113,12 @@ class LEADSim:
             raise ValueError(f"engine must be 'tree' or 'flat', got "
                              f"{self.engine!r}")
         if self.faults is not None:
-            raise NotImplementedError(f"fault injection {_LATER}")
+            if not isinstance(self.faults, faults_mod.FaultModel):
+                raise TypeError(f"faults must be a core/faults.FaultModel, "
+                                f"got {self.faults!r}")
+            if self.engine != "flat":
+                raise ValueError("fault injection runs on the flat engine's "
+                                 "faulted wire; pass engine='flat'")
         if (self.gossip is None) == (self.topology is None):
             raise ValueError("give exactly one of gossip= (DenseGossip) or "
                              "topology=")
@@ -131,8 +154,9 @@ class LEADSim:
         if dim not in self._engines:
             self._engines[dim] = engine_for(
                 self._topology, self.compressor, dim, dither=self.dither,
-                gossip=self.engine_gossip, device=self.device, eta=self.eta,
-                gamma=self.gamma, alpha=self.alpha)
+                gossip=self.engine_gossip, faults=self.faults,
+                device=self.device, eta=self.eta, gamma=self.gamma,
+                alpha=self.alpha)
         return self._engines[dim]
 
     @property
@@ -173,6 +197,14 @@ class LEADSim:
 
     def step(self, state, g, seed: int):
         return self.step_with_wire(state, g, seed)[0]
+
+    # -- the faulted driver protocol (delegates to the flat engine) ----------
+    def init_fault_state(self, state):
+        return self._flat_engine(self.dim).init_fault_state(state)
+
+    def step_with_wire_faulted(self, state, fstate, g, seed: int):
+        return self._flat_engine(self._dim_of(g)).step_with_wire_faulted(
+            state, fstate, g, seed)
 
     def x_of(self, state):
         """Current iterates as (n, d) on either path."""
@@ -215,36 +247,89 @@ class Trace(NamedTuple):
     up to and including the iteration: the actual per-step payloads on
     the flat engines, the compressor's static ``wire_bits(d)`` per
     iteration on the tree paths.
+
+    The last four rows are the fault metrics (core/faults.py), per
+    recorded iteration: dropped_links counts the directed real edges that
+    did not deliver, realized_gap is 1 - sigma_2 of the renormalized
+    realized mixing matrix, staleness_mean/max summarize the FaultState's
+    ages.  run() always fills them; on a fault-free run all four are 0.
     """
     dist: np.ndarray
     consensus: np.ndarray
     loss: np.ndarray
     bits_per_agent: np.ndarray
     comp_err: np.ndarray
+    dropped_links: np.ndarray = None
+    realized_gap: np.ndarray = None
+    staleness_mean: np.ndarray = None
+    staleness_max: np.ndarray = None
+
+
+def oracle_draws(problem, X: torch.Tensor, seed: int, *, stochastic: bool,
+                 batch: int, noise_std: float) -> dict:
+    """The random input of one gradient-oracle call at the iterates X:
+    ``noise``, a standard normal plane of X's shape (noise_std > 0), or
+    ``idx``, the (n, batch) sample indices (stochastic), from the counter
+    hash seeded `seed`, on X's device; nothing for the full gradient.  The
+    one place the oracles draw: the parity tests replace it to hand the
+    port the reference's draws."""
+    if noise_std > 0:
+        return {"noise": fast_normal(X.shape, seed, device=X.device)}
+    if stochastic:
+        return {"idx": batch_indices(problem.n, batch, problem.m, seed,
+                                     X.device)}
+    return {}
+
+
+def oracle_grad(problem, X: torch.Tensor, seed: int, *, stochastic=False,
+                batch=64, noise_std=0.0) -> torch.Tensor:
+    """One call of run()'s gradient oracle at the iterates X: the full
+    gradient plus noise_std times ``oracle_draws``' Gaussian plane
+    (noise_std > 0 wins), the minibatch gradient over its batch indices
+    (stochastic), else the full gradient."""
+    if noise_std <= 0 and not stochastic:
+        return problem.full_grad(X)
+    draws = oracle_draws(problem, X, seed, stochastic=stochastic,
+                         batch=batch, noise_std=noise_std)
+    if noise_std > 0:
+        return problem.full_grad(X) + noise_std * draws["noise"]
+    return problem.minibatch_grad(X, draws["idx"])
 
 
 def run(algo, problem, x_star, *, iters=300, seed: int = 0, stochastic=False,
-        noise_std=0.0, record_every=1, topology=None) -> Trace:
+        batch=64, noise_std=0.0, record_every=1, topology=None) -> Trace:
     """Run `algo` on `problem` from x0 = 0; returns metric traces (host
     numpy).  The run lives on x_star's device.
 
+    stochastic=True takes minibatch gradients of `batch` samples per
+    agent; noise_std > 0 instead adds Gaussian noise of that scale to the
+    full gradient (the bounded-variance oracle of Assumption 3).  The
+    initial gradient comes from the same oracle.
+
     topology= swaps the algorithm's communication graph before running.
-    Iteration `it` draws with sub_seed(seed, it), so a compressed trace matches the reference's in
-    distribution, not bit for bit: the reference draws its keys from its
-    jax.random key stream.  An uncompressed trace matches it to rounding.
+    Iteration `it` draws with sub_seed(seed, it) (its oracle with that
+    seed's substream 1, the initial gradient with sub_seed(seed,
+    2^32 - 1)'s), so a compressed or stochastic trace matches the
+    reference's in distribution, not bit for bit: the reference draws
+    from its jax.random key stream.  An uncompressed full-gradient trace
+    matches it to rounding.
 
     The algorithm's own protocol decides what a step reports, as in the
     reference: step_with_wire gives the actual wire bits; step_with_metrics
     the in-step comp_err, with the compressor's static wire_bits(d) per
-    step; a bare step the ``_compression_error`` estimate.
+    step; a bare step the ``_compression_error`` estimate.  An algorithm
+    with an active FaultModel steps through step_with_wire_faulted with a
+    FaultState beside its state.
 
     Metrics are written into a preallocated device tensor and cross to the
-    host once, at the end.  With record_every > 1 the metric reductions of
-    skipped iterations are not computed (their rows are sliced out).
+    host once, at the end.  A faulted run's dropped links and realized
+    gap depend only on (fault seed, step, topology): they are realized on
+    the host after the loop (the gap's SVD would synchronise the card).
+    With record_every > 1 the metric reductions of skipped iterations are
+    not computed (their rows are sliced out).  With REPRO_ASSERT_FINITE set
+    every recorded step checks its iterates and comp_err (utils/finite.py).
     Each step marks the ends of its stages for core/stage_timer.py, which
     times them when a StageTimer is active."""
-    if stochastic or noise_std > 0:
-        raise NotImplementedError(f"the stochastic gradient oracle {_LATER}")
     dev = x_star.device
     n, d = problem.n, problem.d
     x0 = torch.zeros((n, d), dtype=torch.float32, device=dev)
@@ -254,20 +339,35 @@ def run(algo, problem, x_star, *, iters=300, seed: int = 0, stochastic=False,
     if isinstance(algo, LEADSim) and (algo.dim is None or algo.device is None):
         algo = dataclasses.replace(algo, dim=d, device=algo.device or dev)
 
-    state = algo.init(x0, problem.full_grad(x0))
+    grad_at = functools.partial(oracle_grad, problem, stochastic=stochastic,
+                                batch=batch, noise_std=noise_std)
+    state = algo.init(x0, grad_at(x0, sub_seed(sub_seed(seed, _MASK32),
+                                               _ORACLE)))
     x_of = getattr(algo, "x_of", lambda s: s.x)
     comp = getattr(algo, "compressor", None)
     bits_per_step = static_bits(comp, d, dev)
     step_with_wire = getattr(algo, "step_with_wire", None)
     step_with_metrics = getattr(algo, "step_with_metrics", None)
+    finite_on = finite_checks_enabled()
 
-    ms = torch.zeros((5, iters), dtype=torch.float32, device=dev)
+    # an active FaultModel reroutes the step through the faulted wire; an
+    # inactive one takes this exact clean path (bit-identical traces)
+    fm = getattr(algo, "faults", None)
+    faulted = fm is not None and fm.is_active
+    fstate = algo.init_fault_state(state) if faulted else None
+
+    # rows: dist, consensus, loss, comp_err, bits (+ staleness mean, max)
+    ms = torch.zeros((7 if faulted else 5, iters), dtype=torch.float32,
+                     device=dev)
     bits_acc = torch.zeros((), dtype=torch.float32, device=dev)
     for it in range(iters):
-        g = problem.full_grad(x_of(state))
-        mark("gradient")
         s = sub_seed(seed, it)
-        if step_with_wire is not None:
+        g = grad_at(x_of(state), sub_seed(s, _ORACLE))
+        mark("gradient")
+        if faulted:
+            new, fstate, cerr, bits = algo.step_with_wire_faulted(
+                state, fstate, g, s)
+        elif step_with_wire is not None:
             new, cerr, bits = step_with_wire(state, g, s)
         elif step_with_metrics is not None:
             new, cerr = step_with_metrics(state, g, s)
@@ -279,19 +379,39 @@ def run(algo, problem, x_star, *, iters=300, seed: int = 0, stochastic=False,
         bits_acc = bits_acc + bits
         if it % record_every == 0:
             X = x_of(new)
+            if finite_on:
+                assert_finite_tree({"x": X, "comp_err": cerr},
+                                   where="simulator recorded step")
             ms[0, it] = distance_to_opt(X, x_star)
             ms[1, it] = consensus_error(X)
             ms[2, it] = problem.loss(X)
             ms[3, it] = cerr
+            if faulted:
+                age = fstate.age.to(torch.float32)
+                ms[5, it] = torch.mean(age)
+                ms[6, it] = torch.max(age)
         ms[4, it] = bits_acc
         mark("metrics")
         state = new
 
     # single device->host transfer for the whole trace
-    dist, cons, loss, cerr, bits = ms.cpu().numpy().astype(np.float64)
+    rows = ms.cpu().numpy().astype(np.float64)
     sel = slice(0, iters, record_every)
+    dist, cons, loss, cerr, bits = rows[:5]
+    zeros = np.zeros(len(dist[sel]), np.float64)
+    faults = dict(dropped_links=zeros, realized_gap=zeros,
+                  staleness_mean=zeros, staleness_max=zeros)
+    if faulted:
+        # the masks of the recorded steps (state.k = it, the pre-step
+        # counter the wire used), realized on the host
+        topo = algo._topology if isinstance(algo, LEADSim) else algo.topology
+        dropped, gap = faults_mod.link_metrics(
+            fm, topo, torch.arange(0, iters, record_every))
+        faults = dict(dropped_links=dropped.numpy().astype(np.float64),
+                      realized_gap=gap.numpy().astype(np.float64),
+                      staleness_mean=rows[5][sel], staleness_max=rows[6][sel])
     return Trace(dist=dist[sel], consensus=cons[sel], loss=loss[sel],
-                 bits_per_agent=bits[sel], comp_err=cerr[sel])
+                 bits_per_agent=bits[sel], comp_err=cerr[sel], **faults)
 
 
 def _compression_error(algo, state, problem, seed: int) -> torch.Tensor:

@@ -114,6 +114,13 @@ class Topology:
         ev = np.sort(1.0 - self._eig_i_minus_w)      # eigenvalues of W
         return float(1.0 - max(abs(ev[0]), abs(ev[-2])))
 
+    @functools.cached_property
+    def edge_mask(self) -> np.ndarray:
+        """(n, n) bool: True where a real directed edge exists (W above the
+        edge tolerance, off the diagonal).  The fault layer
+        (core/faults.py) counts dropped links against this set."""
+        return (self.W > _EDGE_TOL) & ~np.eye(self.n, dtype=bool)
+
     # -- point-to-point view --------------------------------------------------
     @functools.cached_property
     def _rounds(self) -> List[Tuple[Tuple[Tuple[int, int], ...], np.ndarray]]:

@@ -336,7 +336,8 @@ def test_ring_gossip_alias_runs_and_rejects_other_graphs():
     np.testing.assert_allclose(
         tr.bits_per_agent, (np.arange(150) + 1) * q4.wire_bits(30))
     dense, ring = (run(LEADSim(topology=topology.ring(8), eta=0.02,
-                               engine_gossip=g), prob, prob.x_star, iters=50)
+                               engine="flat", engine_gossip=g), prob,
+                       prob.x_star, iters=50)
                    for g in ("dense", "ring"))
     _trace_close(ring.dist, dense.dist, "ring vs dense LEAD")
     for topo in (topology.torus_2d(2, 4), topology.fully_connected(4)):
@@ -445,7 +446,8 @@ def test_fig2_ordering_in_the_port():
     tr = {}
     for name, hy in FIG2.items():
         if name == "lead":
-            algo = LEADSim(topology=topo, compressor=q2, eta=FIG2_ETA)
+            algo = LEADSim(topology=topo, compressor=q2, eta=FIG2_ETA,
+                           engine="flat")
         else:
             algo = engine_for(topo, None if is_exact(name) else q2, prob.d,
                               algorithm=name, eta=FIG2_ETA, device=CPU, **hy)

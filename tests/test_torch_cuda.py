@@ -8,16 +8,18 @@ runs on a machine without it:
 
 (--noconftest: tests/conftest.py imports jax for the reference's tests.)
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import topology
+from repro_torch.core import faults, topology
 from repro_torch.core.baselines import CHOCO_SGD, DGD, NIDS
 from repro_torch.core.compression import (QuantizePNorm, RandK, TopK,
-                                          agent_draws)
+                                          agent_draws, fast_normal)
 from repro_torch.core.convert import state_from_numpy
-from repro_torch.core.convex import LinearRegression
+from repro_torch.core.convex import LinearRegression, batch_indices
 from repro_torch.core.engines import engine_for
 from repro_torch.core.gossip import DenseGossip
 from repro_torch.core.simulator import LEADSim, run
@@ -173,7 +175,7 @@ def test_main_path_runs_through_the_kernels(cuda_device):
                                      device=cuda_device)
     mu, L = prob.mu_L
     lead = LEADSim(topology=topology.ring(8), compressor=QuantizePNorm(bits=2),
-                   eta=1.0 / L)
+                   eta=1.0 / L, engine="flat")
     cuda_lib.reset_launch_counts()
     tr = run(lead, prob, prob.x_star, iters=50)
     assert cuda_lib.launch_counts() == {k: 50 if k in LEAD_KERNELS else 0
@@ -181,7 +183,7 @@ def test_main_path_runs_through_the_kernels(cuda_device):
     assert np.isfinite(tr.dist).all() and tr.dist[-1] < 1e-2 * tr.dist[0]
 
     cpu = LinearRegression.from_arrays(prob.A, prob.b, prob.lam, device="cpu")
-    exact = LEADSim(topology=topology.ring(8), eta=1.0 / L)
+    exact = LEADSim(topology=topology.ring(8), eta=1.0 / L, engine="flat")
     on_card = run(exact, prob, prob.x_star, iters=100)
     on_cpu = run(exact, cpu, prob.x_star.cpu(), iters=100)
     for a, b in zip(on_card[:3], on_cpu[:3]):
@@ -364,3 +366,136 @@ def test_tree_compress_on_the_card_equals_the_cpu(cuda_device, name, shape):
         cpu = comp.compress_agents(X.cpu(),
                                    **{k: v.cpu() for k, v in draws.items()})
         assert card.shape == X.shape and torch.equal(card.cpu(), cpu)
+
+
+FAULT_TOPOS = {"ring8": lambda: topology.ring(8),
+               "torus_2x4": lambda: topology.torus_2d(2, 4),
+               "er8": lambda: topology.erdos_renyi(8, p=0.5, seed=1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("topo", sorted(FAULT_TOPOS))
+def test_fault_masks_on_the_card_equal_the_cpu(cuda_device, topo, rate):
+    """The counter hash's fault realizations on the card, bit for bit the
+    CPU's (which the CPU tests hold to the reference's): 64 steps of dense
+    and table masks and broadcast flags, the dropped-link counts and
+    undetected bit-flip corruption.  The realized gap from the card's SVD
+    (run() takes it on the host) within 16 ulp of 1.0 of the CPU's: cuSOLVER
+    and LAPACK part by several ulp where sigma_2 is near 1 (an isolated
+    agent)."""
+    t = FAULT_TOPOS[topo]()
+    nbr = torch.as_tensor(t.neighbors, dtype=torch.int64)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (8, 3, 512)).astype(np.float32))
+    for detect in (True, False):
+        fm = faults.FaultModel(seed=3, link_drop=rate, agent_drop=rate,
+                               dropout_window=3, straggler_rate=rate,
+                               straggler_tau=2, bitflip_rate=rate,
+                               detect_corruption=detect)
+        ks = torch.arange(64).reshape(-1, 1, 1)
+        kc = ks.to(cuda_device)
+        assert torch.equal(fm.dense_mask(kc, 8).cpu(), fm.dense_mask(ks, 8))
+        assert torch.equal(fm.table_mask(kc, nbr.to(cuda_device)).cpu(),
+                           fm.table_mask(ks, nbr))
+        assert torch.equal(fm.broadcast_ok(kc[:, :, 0], 8).cpu(),
+                           fm.broadcast_ok(ks[:, :, 0], 8))
+        d_card, g_card = faults.link_metrics(fm, t, kc.reshape(-1))
+        d_cpu, g_cpu = faults.link_metrics(fm, t, ks.reshape(-1))
+        assert torch.equal(d_card.cpu(), d_cpu)
+        assert float((g_card.cpu() - g_cpu).abs().max()) <= 16 * 2.0 ** -23
+        for k in range(8):
+            card = fm.corrupt_values(x.to(cuda_device),
+                                     torch.tensor(k, device=cuda_device))
+            assert torch.equal(card.cpu().view(torch.int32),
+                               fm.corrupt_values(x, k).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_oracle_draws_on_the_card_equal_the_cpu(cuda_device):
+    """Batch indices on the card are the CPU's, bit for bit (integer
+    arithmetic on the counter hash); the Box-Muller normals agree within 4
+    ulp (log and cos are not correctly rounded); a minibatch gradient on
+    the card's indices matches the CPU's within 1e-5."""
+    for seed in (0, 7, 2 ** 32 - 1):
+        for m in (200, 256, 1000):
+            assert torch.equal(
+                batch_indices(8, 64, m, seed, device=cuda_device).cpu(),
+                batch_indices(8, 64, m, seed, device="cpu"))
+        card = fast_normal((8, 1 << 16), seed, device=cuda_device).cpu()
+        cpu = fast_normal((8, 1 << 16), seed, device="cpu")
+        ulp = torch.nextafter(cpu.abs(), torch.tensor(float("inf"))) \
+            - cpu.abs()
+        assert float(((card - cpu).abs() / ulp).max()) <= 4.0
+    prob = LinearRegression.generate(torch.Generator().manual_seed(0),
+                                     n_agents=8, m=64, d=64, device="cpu")
+    card = LinearRegression.from_arrays(prob.A, prob.b, prob.lam,
+                                        device=cuda_device)
+    X = torch.randn(8, 64, generator=torch.Generator().manual_seed(1))
+    np.testing.assert_allclose(
+        card.minibatch_grad(X.to(cuda_device), seed=3).cpu().numpy(),
+        prob.minibatch_grad(X, seed=3).numpy(), rtol=1e-5, atol=1e-5)
+
+
+class _Quadratic:
+    """f_i(x) = 0.5 ||x - t_i||^2 on a device."""
+
+    def __init__(self, n, d, device):
+        self.T = torch.randn((n, d), generator=torch.Generator(
+            device).manual_seed(0), device=device)
+        self.n, self.d, self.x_star = n, d, self.T.mean(0)
+
+    def full_grad(self, X):
+        return X - self.T
+
+    def loss(self, X):
+        return 0.5 * torch.mean(torch.sum((X - self.T) ** 2, -1))
+
+
+SYNC_CASES = ("lead_dense", "lead_neighbor", "choco_stale", "lead_noisy")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SYNC_CASES)
+def test_faulted_run_makes_no_per_step_sync(cuda_device, case):
+    """A faulted run() synchronises the card with the host as often at 10
+    and 20 steps as at 5 (torch.cuda.set_sync_debug_mode flags every
+    synchronising call; a run makes a few, the copies of the graph's
+    tables to the card when its engine is built and the one copy of the
+    trace): the fault masks are hashed on the card, and the realized gap's
+    SVD runs on the host after the loop.  Likewise the noisy oracle."""
+    prob = _Quadratic(8, 4096, cuda_device)
+    q2 = QuantizePNorm(bits=2)
+    link = faults.FaultModel(seed=0, link_drop=0.1)
+    kw = {}
+    if case == "choco_stale":
+        algo = engine_for(topology.ring(8), q2, prob.d, algorithm="choco",
+                          gossip="neighbor", eta=0.01, gamma=0.8,
+                          faults=faults.FaultModel(
+                              seed=6, agent_drop=0.2, dropout_window=5,
+                              policy="stale"), device=cuda_device)
+    else:
+        algo = LEADSim(topology=topology.ring(8), compressor=q2, eta=0.5,
+                       engine="flat", device=cuda_device,
+                       engine_gossip="neighbor" if "neighbor" in case
+                       else "dense",
+                       faults=None if case == "lead_noisy" else link)
+        kw = {"noise_std": 0.1} if case == "lead_noisy" else {}
+    run(algo, prob, prob.x_star, iters=2, **kw)        # builds the kernels
+
+    def syncs(iters):
+        """Where each synchronising call of a run came from."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                tr = run(algo, prob, prob.x_star, iters=iters, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert all(np.isfinite(a).all() for a in tr)
+        return [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught
+                if "called a synchronizing CUDA operation" in str(w.message)]
+
+    at5 = syncs(5)
+    for iters in (10, 20):
+        assert syncs(iters) == at5, iters

@@ -253,7 +253,9 @@ def test_unported_paths_raise():
         engine_for(topo, None, 64, dither="match", device=CPU)
     with pytest.raises(NotImplementedError):
         engine_for(topo, None, 64, gossip="hier", device=CPU)
-    with pytest.raises(NotImplementedError):
+    # fault injection is ported: a non-FaultModel is rejected, as the
+    # reference asserts
+    with pytest.raises(TypeError, match="FaultModel"):
         engine_for(topo, None, 64, faults=object(), device=CPU)
     # the tree path is ported: it steps (and still needs a compressor)
     tree = LEADSim(topology=topo, compressor=Identity(), engine="tree",
@@ -264,15 +266,16 @@ def test_unported_paths_raise():
     assert float(bits) == Identity().wire_bits(64)
     with pytest.raises(ValueError):
         LEADSim(topology=topo, engine="tree")
-    with pytest.raises(NotImplementedError):
-        LEADSim(topology=topo, faults=object())
+    with pytest.raises(TypeError, match="FaultModel"):
+        LEADSim(topology=topo, engine="flat", faults=object())
     with pytest.raises(ValueError):
         LEADSim(topology=topo, engine="pytree")
     prob = LinearRegression.generate(torch.Generator().manual_seed(0),
                                      n_agents=8, m=8, d=8, device=CPU)
-    with pytest.raises(NotImplementedError):
-        run(LEADSim(topology=topo), prob, prob.x_star, iters=2,
-            stochastic=True)
+    # the stochastic oracle is ported: the run steps
+    tr = run(LEADSim(topology=topo, engine="flat"), prob, prob.x_star,
+             iters=2, stochastic=True, batch=4)
+    assert np.isfinite(tr.dist).all() and len(tr.dist) == 2
     # LEAD with a p=2 quantizer takes the generic wire and steps
     eng = engine_for(topo, QuantizePNorm(bits=2, p=2.0), 64, device=CPU)
     x = torch.ones(8, 64)
@@ -400,7 +403,7 @@ def test_free_run_trace_parity(readme_problem, algorithm):
     jprob, eta = readme_problem
     prob, x_star = _port_problem(jprob)
     if algorithm == "lead":
-        algo_t = LEADSim(topology=topology.ring(8), eta=eta)
+        algo_t = LEADSim(topology=topology.ring(8), eta=eta, engine="flat")
         algo_j = JaxLEADSim(topology=jax_topology.ring(8), eta=eta,
                             engine="flat")
     else:
@@ -428,7 +431,8 @@ def test_bits_and_headline_on_reference_data(readme_problem, readme_runs):
     ref_lead, ref_dgd = readme_runs
     cuda_lib.reset_launch_counts()
     lead = run(LEADSim(topology=topology.ring(8),
-                       compressor=QuantizePNorm(bits=2), eta=eta),
+                       compressor=QuantizePNorm(bits=2), eta=eta,
+                       engine="flat"),
                prob, x_star, iters=300)
     assert sum(cuda_lib.launch_counts().values()) == 0    # CPU: plain only
     dgd = run(engine_for(topology.ring(8), None, prob.d, algorithm="dgd",
@@ -450,7 +454,8 @@ def test_headline_in_the_port_alone(readme_runs):
     topo = topology.ring(8)
     mu, L = prob.mu_L
     eta = 1.0 / L
-    lead = LEADSim(topology=topo, compressor=QuantizePNorm(bits=2), eta=eta)
+    lead = LEADSim(topology=topo, compressor=QuantizePNorm(bits=2), eta=eta,
+                   engine="flat")
     tr = run(lead, prob, prob.x_star, iters=300)
     dgd = engine_for(topo, None, prob.d, algorithm="dgd", eta=eta, device=CPU)
     tr_dgd = run(dgd, prob, prob.x_star, iters=300)
@@ -466,7 +471,7 @@ def test_stage_timer_marks_the_run():
     prob = LinearRegression.generate(torch.Generator().manual_seed(3),
                                      n_agents=8, m=16, d=40, device=CPU)
     lead = LEADSim(topology=topology.ring(8), compressor=QuantizePNorm(bits=2),
-                   eta=0.02)
+                   eta=0.02, engine="flat")
     plain = run(lead, prob, prob.x_star, iters=3)
     with StageTimer(CPU) as timer:
         timed = run(lead, prob, prob.x_star, iters=3)
@@ -489,7 +494,7 @@ def test_run_options():
     prob = LinearRegression.generate(torch.Generator().manual_seed(3),
                                      n_agents=8, m=16, d=40, device=CPU)
     lead = LEADSim(topology=topology.ring(8), compressor=QuantizePNorm(bits=2),
-                   eta=0.02)
+                   eta=0.02, engine="flat")
     full = run(lead, prob, prob.x_star, iters=12)
     sub = run(lead, prob, prob.x_star, iters=12, record_every=5)
     for f in full._fields:

@@ -446,6 +446,37 @@ def test_uncompressed_tree_free_run_trace_parity(readme_problem, name):
     assert not got.comp_err.any()
 
 
+def test_default_engine_is_the_references(monkeypatch):
+    """LEADSim's default engine is the reference's, "tree": the same call,
+    LEADSim(gossip=dg, compressor=QuantizePNorm(bits=2), eta=0.1), takes
+    one step equal to the reference's default LEADSim (the reference's
+    per-agent draws injected through compression.agent_draws); with no
+    compressor the default raises ValueError, as the reference asserts."""
+    dg_t = gossip.DenseGossip.from_topology(topology.ring(N), CPU)
+    dg_j = jax_gossip.DenseGossip(W=jnp.asarray(jax_topology.ring(N)))
+    algo = LEADSim(gossip=dg_t, compressor=QuantizePNorm(bits=2), eta=0.1)
+    ref = jax_sim.LEADSim(gossip=dg_j,
+                          compressor=jax_comp.QuantizePNorm(bits=2), eta=0.1)
+    assert algo.engine == ref.engine == "tree"
+    rng = np.random.default_rng(17)
+    x0, g0, g = (rng.standard_normal((N, DIM)).astype(np.float32)
+                 for _ in range(3))
+    st_j = ref.init(jnp.asarray(x0), jnp.asarray(g0), jax.random.PRNGKey(0))
+    st_t = algo.init(torch.from_numpy(x0), torch.from_numpy(g0))
+    _state_close(st_t, st_j, "default LEADSim init")
+    key = jax.random.PRNGKey(11)
+    _inject(monkeypatch, _reference_draws(ref.compressor,
+                                          jax.random.split(key, N), (DIM,)))
+    new_j, err_j, bits_j = ref.step_with_wire(st_j, jnp.asarray(g), key)
+    new_t, err_t, bits_t = algo.step_with_wire(st_t, torch.from_numpy(g), 0)
+    assert type(new_t).__name__ == type(new_j).__name__ == "LEADState"
+    _state_close(new_t, new_j, "default LEADSim step")
+    _close(float(err_t), float(err_j), "default LEADSim comp_err")
+    assert float(bits_t) == float(bits_j)
+    with pytest.raises(ValueError):
+        LEADSim(topology=topology.ring(8))
+
+
 def test_tree_lead_construction_and_rebinding(readme_problem):
     """LEADSim(engine="tree"): exactly one of gossip= and topology=, a
     compressor required, a time-varying bank refused; the legacy gossip=
