@@ -3,9 +3,9 @@
 
     PYTHONPATH=src python3 chip_smoke.py
 
-Builds the kernels from src/repro_torch/csrc, then runs nine phases, each
-printing one JSON line (baselines_at_scale and tree_at_scale one per run);
-a failed check exits nonzero.
+Builds the kernels from src/repro_torch/csrc, then runs fifteen phases,
+each printing one JSON line (the at-scale phases one per run); a failed
+check exits nonzero.
 
   env            card name and power limit, torch and CUDA versions, build time
   kernels        K1 lead_diff_encode, K2 quantize decode (each at b = 2, 4, 7)
@@ -89,6 +89,26 @@ a failed check exits nonzero.
                  the noisy oracle at the real size: flat LEAD through
                  run(noise_std=0.1) for 20 steps (dist falls 10x), and one
                  seed's Gaussian plane on the card within 4 ulp of the CPU's
+  bank_at_scale  time-varying gossip at the real size (lead_at_scale's
+                 objective, one warm-up step, 20 steps): 2-bit LEAD on
+                 exponential_onepeer(8) (period 3) on neighbor and dense
+                 gossip (K1-K3 once per step), CHOCO on the 2-bit wire over
+                 random_matching(8, seed=0) (K4, K2), and LEAD on that bank
+                 under 10% link drops (its fault fields the CPU's exactly)
+  hier_at_scale  2-bit LEAD on hierarchical(ring(4), 2) with gossip="hier",
+                 clean and under 10% link drops: K4, K2 and K3 once per
+                 step and K1 never, bits exactly lead_at_scale's over 2
+  interval_at_scale
+                 2-bit LEAD on ring(8).with_interval(4), clean and under
+                 10% link drops: K1-K3 on 5 of the 20 steps, bits exactly
+                 lead_at_scale's over 4, comp_err and link metrics 0 on the
+                 skipped steps
+                 Each run of these three phases prints its ms/step, stage
+                 breakdown and peak memory; its configuration also runs at
+                 d = 4,096 for 50 steps on the card and on the CPU, the two
+                 traces held by the CPU tests' bound, and the CPU run
+                 predicts the factors by which the run's dist and
+                 consensus move in 20 steps (held within 2x)
 
 The line before the last lists every kernel with its launches on the main
 path, its error against the plain version and its times; the last line is
@@ -215,6 +235,46 @@ FAULT_RUNS = {
     "choco_stale_neighbor": ("choco", "neighbor", STALE,
                              "choco_clean_neighbor"),
 }
+# bank_at_scale, hier_at_scale, interval_at_scale: lead_at_scale's
+# objective and hypers (CHOCO: baselines_at_scale's on the 2-bit wire);
+# run: (algorithm, topology, gossip, fault model or None, the kernels it
+# launches, the interval: each kernel launches once per communicating step)
+NEW_PATHS = {
+    "bank_at_scale": {
+        "lead_onepeer_neighbor": ("lead", lambda t: t.exponential_onepeer(8),
+                                  "neighbor", None, LEAD_KERNELS, 1),
+        "lead_onepeer_dense": ("lead", lambda t: t.exponential_onepeer(8),
+                               "dense", None, LEAD_KERNELS, 1),
+        "choco_matching": ("choco", lambda t: t.random_matching(8, seed=0),
+                           "neighbor", None,
+                           ("quantize_encode", "quantize_decode"), 1),
+        "lead_matching_faulted": ("lead",
+                                  lambda t: t.random_matching(8, seed=0),
+                                  "neighbor", LINK_DROP, LEAD_KERNELS, 1),
+    },
+    "hier_at_scale": {   # K1 never: the node mean comes before the encode
+        "lead_hier": ("lead", lambda t: t.hierarchical(t.ring(4), 2), "hier",
+                      None, ("quantize_encode", "quantize_decode",
+                             "lead_update"), 1),
+        "lead_hier_faulted": ("lead", lambda t: t.hierarchical(t.ring(4), 2),
+                              "hier", LINK_DROP,
+                              ("quantize_encode", "quantize_decode",
+                               "lead_update"), 1),
+    },
+    "interval_at_scale": {
+        "lead_interval": ("lead", lambda t: t.ring(8).with_interval(4),
+                          "dense", None, LEAD_KERNELS, 4),
+        "lead_interval_faulted": ("lead",
+                                  lambda t: t.ring(8).with_interval(4),
+                                  "dense", LINK_DROP, LEAD_KERNELS, 4),
+    },
+}
+NEW_STAGES = {"bank_at_scale": {"round_mix": "round_mix"},
+              "hier_at_scale": {"intra_project": "intra_project"},
+              "interval_at_scale": {"local": "local_step"}}
+SMALL_D, SMALL_ITERS = 4096, 50   # each new run's configuration held to the
+                                  # CPU's, which also predicts its factors
+PREDICT_TOL = 2.0           # at-scale factor within 2x of the predicted
 TWIN_RTOL = 0.15            # faulted stage sum within 15% of its twin's
 SMALL_FAULT_D = 2048        # the faulted run held against the CPU
 ORACLE_NOISE = 0.1
@@ -311,10 +371,12 @@ def trace_gap(a, b, what):
     return gap
 
 
-def stage_breakdown(run_fn, dev, names, what):
-    """Median ms per stage of run_fn() (6 steps) under core/stage_timer.py,
-    step 0 dropped as warm-up; `names` maps each mark to what it runs and
-    must cover every stage."""
+def stage_breakdown(run_fn, dev, names, what, per_step=False):
+    """Median ms per stage of run_fn() under core/stage_timer.py, step 0
+    dropped as warm-up; `names` maps each mark to what it runs and must
+    cover every stage.  With per_step, also the mean device ms of a step
+    (every stage of the steps after the first, over their count): the
+    measure of a run whose steps differ, as an interval's do."""
     from repro_torch.core.stage_timer import StageTimer
 
     with StageTimer(dev) as timer:
@@ -325,7 +387,11 @@ def stage_breakdown(run_fn, dev, names, what):
     for name, ms in stages[first:]:
         acc.setdefault(names.get(name, name), []).append(ms)
     check(set(acc) == set(names.values()), f"{what}: stages {sorted(acc)}")
-    return {s: statistics.median(v) for s, v in acc.items()}
+    medians = {s: statistics.median(v) for s, v in acc.items()}
+    if not per_step:
+        return medians
+    steps = len(acc[names["metrics"]])
+    return medians, sum(ms for _, ms in stages[first:]) / steps
 
 
 class Quadratic:
@@ -1243,19 +1309,25 @@ def phase_fig3(dev):
     return launches
 
 
-def fault_metrics_on_cpu(model, topo, iters):
+def fault_metrics_on_cpu(model, topo, iters, node_size=1, tau=1):
     """The Trace's fault fields for `iters` steps from nothing but the
-    model and the graph, on the CPU: step_metrics at each step k, with the
-    staleness ages replayed from broadcast_ok."""
+    model and the graph, on the CPU: step_metrics at each step k (a bank's
+    round graph of step k), with the staleness ages replayed from
+    broadcast_ok.  On a hier wire `topo` is the inter graph and an ok
+    repeats over the node_size agents of its node; with an interval tau
+    the steps k % tau != 0 fire no wire: no link metrics, ages frozen."""
     from repro_torch.core import faults
 
-    age = torch.zeros(topo.n, dtype=torch.int32)
+    age = torch.zeros(topo.n * node_size, dtype=torch.int32)
     rows = []
     for k in range(iters):
-        ok = model.broadcast_ok(k, topo.n, device="cpu")
-        age = torch.where(ok, torch.zeros_like(age), age + 1)
-        rows.append([float(v) for v in faults.step_metrics(model, topo, k,
-                                                           age)])
+        comm = k % tau == 0
+        if comm:
+            ok = model.broadcast_ok(k, topo.n, device="cpu")
+            ok = ok.repeat_interleave(node_size)
+            age = torch.where(ok, torch.zeros_like(age), age + 1)
+        m = [float(v) for v in faults.step_metrics(model, topo, k, age)]
+        rows.append(m if comm else [0.0, 0.0] + m[2:])
     return {f: np.array(col) for f, col in zip(
         ("dropped_links", "realized_gap", "staleness_mean", "staleness_max"),
         zip(*rows))}
@@ -1373,6 +1445,140 @@ def phase_faults_at_scale(dev, clean_trace):
     return launches
 
 
+def phase_new_paths(dev, phase, lead_trace):
+    """One of bank_at_scale, hier_at_scale and interval_at_scale: each
+    NEW_PATHS[phase] run at the real size (lead_at_scale's objective, one
+    warm-up step, 20 counted steps) with its launches pinned, its ms/step,
+    stage breakdown and peak memory; its dist and consensus factors over
+    the 20 steps held to those of the same configuration on the CPU at
+    d = SMALL_D, which also runs on the card and is held to the CPU's trace
+    by trace_gap; bits and fault fields held exactly."""
+    from repro_torch.core import faults, topology
+    from repro_torch.core.compression import QuantizePNorm
+    from repro_torch.core.engines import engine_for
+    from repro_torch.core.simulator import LEADSim, run
+    from repro_torch.kernels import cuda_lib
+
+    n, d, iters = 8, D_SCALE, 20
+    prob = Quadratic(torch.Generator(dev).manual_seed(0), n, d, dev)
+    T = torch.randn((n, SMALL_D), generator=torch.Generator().manual_seed(0))
+    small = {device: Quadratic(None, n, SMALL_D, device, T)
+             for device in (dev, "cpu")}
+    q2 = QuantizePNorm(bits=2)
+    launches = {}
+    for name, (alg_name, build, gossip, model, kernels, every) in \
+            NEW_PATHS[phase].items():
+        topo = build(topology)
+        fm = None if model is None else faults.FaultModel(**model)
+
+        def make(device, dim):
+            if alg_name == "lead":
+                return LEADSim(topology=topo, compressor=q2, engine="flat",
+                               engine_gossip=gossip, faults=fm,
+                               device=device, **LEAD_HYPER)
+            return engine_for(topo, q2, dim, algorithm="choco",
+                              gossip=gossip, eta=CHOCO_ETA,
+                              gamma=CHOCO_WIRES["pinf_2bit"][0], faults=fm,
+                              device=device)
+
+        alg = make(dev, d)
+        what = f"{phase} {name}"
+        run(alg, prob, prob.x_star, iters=1)           # warm-up step
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = run(alg, prob, prob.x_star, iters=iters)  # ends in one .cpu()
+        wall = time.perf_counter() - t0
+        launches[name] = cuda_lib.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        expect_launches(launches[name],
+                        dict.fromkeys(kernels, -(-iters // every)), what)
+        check(all(np.isfinite(a).all() for a in tr), f"{what}: non-finite")
+
+        # the same configuration at SMALL_D: on the CPU it predicts the
+        # factors by which dist and consensus move in 20 steps; on the card
+        # it is held to the CPU's trace
+        runs = {device: run(make(device, SMALL_D), prob_d, prob_d.x_star,
+                            iters=SMALL_ITERS)
+                for device, prob_d in small.items()}
+        gap = trace_gap(runs[dev], runs["cpu"], f"{what} at d={SMALL_D}")
+        factors = {}
+        for f in ("dist", "consensus"):
+            want = getattr(runs["cpu"], f)[iters - 1] / getattr(
+                runs["cpu"], f)[0]
+            got = getattr(tr, f)[-1] / getattr(tr, f)[0]
+            factors[f] = {"at_scale": got, "predicted": want}
+            check(1 / PREDICT_TOL <= got / want <= PREDICT_TOL,
+                  f"{what}: {f} moved {got}x in {iters} steps, the CPU at "
+                  f"d={SMALL_D} predicts {want}x")
+        out = {}
+        tau = int(getattr(topo, "comm_interval", 1))
+        node = int(getattr(topo, "node_size", 1)) if gossip == "hier" else 1
+        if tau > 1 or node > 1:
+            # one encode per node, one exchange per tau steps: the bits
+            # are the every-step flat ring-8 run's over node_size * tau
+            want_bits = lead_trace.bits_per_agent[-1] / (node * tau)
+            check(tr.bits_per_agent[-1] == want_bits,
+                  f"{what}: bits {tr.bits_per_agent[-1]} != lead_at_scale's "
+                  f"/ {node * tau} = {want_bits}")
+            out["bits_over_lead_at_scale"] = (tr.bits_per_agent[-1]
+                                              / lead_trace.bits_per_agent[-1])
+        if tau > 1:
+            skipped = np.arange(iters) % tau != 0
+            check(not tr.comp_err[skipped].any()
+                  and tr.comp_err[~skipped].all(),
+                  f"{what}: comp_err on skipped steps {tr.comp_err}")
+            check(not np.diff(tr.bits_per_agent)[skipped[1:]].any(),
+                  f"{what}: bits grew on a skipped step")
+            check(not tr.dropped_links[skipped].any()
+                  and not tr.realized_gap[skipped].any(),
+                  f"{what}: link metrics on skipped steps")
+        if fm is not None:
+            metric_topo = topo.inter if node > 1 else topo
+            want = fault_metrics_on_cpu(fm, metric_topo, iters, node, tau)
+            for f in ("dropped_links", "staleness_mean", "staleness_max"):
+                check(np.array_equal(getattr(tr, f), want[f]),
+                      f"{what}: {f} {getattr(tr, f)} != the CPU's {want[f]}")
+            fgap = float(np.max(np.abs(tr.realized_gap
+                                       - want["realized_gap"])))
+            check(fgap <= 1e-6, f"{what}: realized_gap off the CPU's by "
+                  f"{fgap}")
+            check(tr.dropped_links.sum() > 0, f"{what}: no link dropped")
+            out.update(dropped_links_total=float(tr.dropped_links.sum()),
+                       realized_gap_mean=float(tr.realized_gap.mean()),
+                       realized_gap_vs_cpu=fgap,
+                       staleness_max=float(tr.staleness_max.max()))
+        names = {**(STAGE_NAMES if alg_name == "lead" and gossip != "hier"
+                    else {**CHOCO_STAGES, **CHOCO_WIRES["pinf_2bit"][2],
+                          "update": "K3_update" if alg_name == "lead"
+                          else "update"}),
+                 "mix": f"{'faulted_' if fm else ''}{gossip}_mix",
+                 **NEW_STAGES[phase]}
+        steps = 2 * tau + 2
+        breakdown, step_ms = stage_breakdown(
+            lambda: run(alg, prob, prob.x_star, iters=steps), dev, names,
+            what, per_step=True)
+        emit({"phase": phase, "run": name, "algorithm": alg_name,
+              "topology": repr(topo), "gossip": gossip, "faults": model,
+              "n": n, "d": d, "iters": iters,
+              "ms_per_step": wall * 1e3 / iters, "breakdown_ms": breakdown,
+              "breakdown_total_ms": sum(breakdown.values()),
+              "device_ms_per_step": step_ms,
+              "max_memory_allocated_GB": peak / 1e9,
+              "launches": launches[name],
+              "dist": [tr.dist[0], tr.dist[-1]],
+              "consensus": [tr.consensus[0], tr.consensus[-1]],
+              "bits_per_agent": tr.bits_per_agent[-1], "factors": factors,
+              "small_d": SMALL_D, "small_iters": SMALL_ITERS,
+              "small_cuda_vs_cpu": gap, **out})
+        del alg, tr, runs
+    del prob
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_oracle_at_scale(dev):
     """The noisy oracle at the real size: flat 2-bit LEAD, n = 8 ring,
     d = 2^25, lead_at_scale's objective and hypers, run(noise_std=0.1) for
@@ -1464,6 +1670,8 @@ def main():
     fig3 = phase_fig3(dev)
     faulted = phase_faults_at_scale(dev, lead_trace)
     oracle = phase_oracle_at_scale(dev)
+    new_paths = {phase: phase_new_paths(dev, phase, lead_trace)
+                 for phase in NEW_PATHS}
     # launches: each kernel's count on its path at the real size (LEAD's for
     # K1-K3, CHOCO's wire for K4-K6), each path run with the counts at 0
     at_scale = {"quantize_encode": baselines["pinf_2bit"],
@@ -1480,7 +1688,9 @@ def main():
             **{f"tree_at_scale/{w}": v[k] for w, v in tree.items()},
             "fig3": sum(v[k] for v in fig3.values()),
             **{f"faults_at_scale/{w}": v[k] for w, v in faulted.items()},
-            "oracle_at_scale": oracle[k]}
+            "oracle_at_scale": oracle[k],
+            **{f"{phase}/{w}": v[k] for phase, runs in new_paths.items()
+               for w, v in runs.items()}}
         if k in hot_path:
             r["hot_path_512"] = hot_path[k]
     print(smi, flush=True)

@@ -88,10 +88,13 @@ def engine_for(topology, compressor, dim: int, dither: str = "fast",
     """Registry dispatch: (algorithm, compressor, topology) -> flat engine
     on `device` ("cuda" when None).
 
-    `topology` is a core/topology.Topology or a raw mixing matrix; `gossip`
+    `topology` is a core/topology.Topology or a raw mixing matrix, a
+    TopologyBank (or a sequence of round graphs, or a periodic schedule:
+    time-varying gossip), a ``hierarchical`` graph, or any of them with a
+    communication interval (``with_interval``; not on a bank); `gossip`
     selects "dense" (W @ q) or "neighbor" (sparse gather over the
-    topology's table; "ring" is the same gather, for the uniform ring
-    only).  Identity normalizes to None (the raw 32-bit wire);
+    topology's table; "ring" is the same gather, for the static uniform
+    ring only; "hier" the two-level wire of a hierarchical graph).  Identity normalizes to None (the raw 32-bit wire);
     every other compressor runs on every compressed algorithm: the p=inf
     QuantizePNorm through the fused kernels, RandK, TopK and p != inf
     quantizers through their encode_blocks wire.  An object without that

@@ -23,6 +23,14 @@ what the family shares:
               neighbor gather (``gossip="neighbor"``) over the engine's
               Topology; ``gossip="ring"`` is the reference's alias for the
               neighbor gather that also requires the uniform ring.
+              ``gossip="hier"`` (topology.hierarchical graphs) runs the
+              two-level wire: exact intra-node averaging (free), one
+              encode per node, the neighbor gather over the inter graph
+              only, so the wire bits are inter-node bytes per agent.  On a
+              TopologyBank step k mixes with round ``k % P``.  Separately,
+              ``topo.with_interval(tau)`` gates the whole wire at
+              ``k % tau == 0``; the other steps run the engine's
+              ``local_stage`` (zero bits, no gossip).
   * dither  - the U[0, 1) planes from ``fast_uniform`` (defined in
               core/compression.py), the reference's counter hash
               reproduced bit for bit.
@@ -51,10 +59,15 @@ FaultState carried from step to step (``step_with_wire_faulted``).  The
 mask is a counter hash of (seed, step, edge) computed on the state's
 device, so a faulted step makes no host sync either.
 
-Not ported yet (each raises NotImplementedError): ``dither="match"`` (the
-reference's threefry stream cannot be reproduced in torch), time-varying
-banks, ``gossip="hier"``, communication intervals and, with them, the
-baselines' ``local_stage``.
+The reference picks a bank's round and gates an interval with the traced
+counter ``state.k``.  The port decides both on the host, from run()'s
+step counter: the step functions take ``step``, the host int equal to
+``state.k``, which run() passes, so neither decision reads the card.  A
+caller that gives no ``step`` on a bank or an interval run has it read off
+``state.k``, one synchronisation per step.
+
+Not ported (raises NotImplementedError): ``dither="match"``, the
+reference's threefry stream, which torch cannot reproduce.
 """
 from __future__ import annotations
 
@@ -69,7 +82,8 @@ from repro_torch.core import topology as topology_mod
 from repro_torch.core.compression import (Identity, QuantizePNorm, TopK,
                                           _flat_to_rows, _is_inf,
                                           _rows_to_flat, fast_uniform)
-from repro_torch.core.gossip import DenseGossip, EncodedNeighborGossip
+from repro_torch.core.gossip import (DenseGossip, EncodedNeighborGossip,
+                                     HierarchicalGossip)
 from repro_torch.core.lead import _at
 from repro_torch.core.stage_timer import mark
 from repro_torch.device import DeviceLike, resolve_device
@@ -85,9 +99,6 @@ def _is_fused_quantizer(comp) -> bool:
     return isinstance(comp, QuantizePNorm) and _is_inf(comp.p)
 
 
-_LATER = ("not ported yet (ROADMAP.md, 'Modules still to port')")
-
-
 @dataclasses.dataclass(frozen=True)
 class FlatEngineBase:
     """Layout + wire + gossip substrate shared by every flat engine.
@@ -96,11 +107,13 @@ class FlatEngineBase:
     and normalized).  compressor=None (or Identity) means no encode stage:
     the raw message buffer is the payload (d * 32 bits on the wire).  The
     payload is decoded once per step; gossip="dense" mixes W @ q,
-    gossip="neighbor" runs the sparse neighbor gather, and gossip="ring"
-    is the same gather on the static uniform ring only (any other
-    topology raises ValueError).  device is where the
-    state lives ("cuda" when None); the topology's tables are copied there
-    once, here.
+    gossip="neighbor" runs the sparse neighbor gather, gossip="ring" is the
+    same gather on the static uniform ring only (any other topology raises
+    ValueError), and gossip="hier" the two-level wire of a
+    topology.hierarchical graph.  The topology may be a TopologyBank (or a
+    periodic schedule, which becomes one): step k then mixes with round
+    k % P.  device is where the state lives ("cuda" when None); the
+    topology's tables are copied there once, here.
 
     Subclasses add their hyper-parameter fields (eta/gamma/...), each a
     ``Schedule``, and implement ``init``, ``message`` and ``apply_stage``,
@@ -121,19 +134,14 @@ class FlatEngineBase:
     consensus_init: ClassVar[Dict[str, str]] = {}
 
     def __post_init__(self):
+        # materialize: a TopologyBank passes through, a periodic schedule
+        # becomes a bank, a live (periodless) schedule raises
         object.__setattr__(self, "topology",
                            topology_mod.materialize(self.topology))
         object.__setattr__(self, "device", resolve_device(self.device))
-        if self.gossip == "hier":
-            raise NotImplementedError(f"gossip='hier' is {_LATER}")
-        if self.gossip not in ("dense", "neighbor", "ring"):
-            raise ValueError(f"gossip must be 'dense', 'neighbor' or 'ring', "
-                             f"got {self.gossip!r}")
-        if self.gossip == "ring" and not np.allclose(
-                self.topology.W, topology_mod.ring(self.n).W, atol=1e-6):
-            raise ValueError("gossip='ring' requires the uniform ring mixing "
-                             "matrix (use gossip='neighbor' for arbitrary "
-                             "topologies)")
+        if self.gossip not in ("dense", "neighbor", "ring", "hier"):
+            raise ValueError(f"gossip must be 'dense', 'neighbor', 'ring' or "
+                             f"'hier', got {self.gossip!r}")
         if self.dither == "match":
             raise NotImplementedError(
                 "dither='match' reproduces the reference's per-agent threefry "
@@ -145,12 +153,67 @@ class FlatEngineBase:
                                                       faults_mod.FaultModel):
             raise TypeError(f"faults must be a core/faults.FaultModel, got "
                             f"{self.faults!r}")
-        # the dense W serves gossip="dense" and the init-time mix (H_w = W H)
+        if self._bank and self.comm_interval > 1:
+            raise ValueError(
+                "comm_interval > 1 is not supported on a TopologyBank: "
+                "skipping rounds changes which round graph fires at which "
+                "step, and the bank recomputations (CHOCO/DCD xhat_w, "
+                "LEAD hw) assume every round fires")
+        if self.gossip == "hier":
+            if not isinstance(self.topology,
+                              topology_mod.HierarchicalTopology):
+                raise ValueError(
+                    "gossip='hier' needs a topology.hierarchical(...) graph "
+                    "(use gossip='neighbor' for flat topologies)")
+            if (self._hier and self.faults is not None
+                    and self.faults.policy != "renormalize"):
+                raise ValueError(
+                    "hier gossip supports only the 'renormalize' fault "
+                    "policy: the stale cache is agent-granular but the hier "
+                    "wire is node-granular")
+        if self.gossip == "ring":
+            if self._bank:
+                raise ValueError(
+                    "gossip='ring' is the static uniform-ring alias and does "
+                    "not support a TopologyBank (use gossip='neighbor')")
+            if not np.allclose(self.topology.W, topology_mod.ring(self.n).W,
+                               atol=1e-6):
+                raise ValueError(
+                    "gossip='ring' requires the uniform ring mixing matrix "
+                    "(use gossip='neighbor' for arbitrary topologies)")
+        # the dense W (a bank's stacked rounds) serves gossip="dense", the
+        # bank's reference mixes and the init-time mix (H_w = W H, round 0)
         object.__setattr__(self, "_dense", DenseGossip.from_topology(
             self.topology, self.device))
         object.__setattr__(self, "_neighbor", (
             EncodedNeighborGossip.from_topology(self.topology, self.device)
-            if self.gossip != "dense" else None))
+            if self.gossip != "dense" and not self._hier else None))
+        object.__setattr__(self, "_hg", (
+            HierarchicalGossip.from_topology(self.topology, self.device)
+            if self._hier else None))
+
+    @property
+    def _bank(self) -> bool:
+        """True when the engine mixes over a round-indexed TopologyBank."""
+        return isinstance(self.topology, topology_mod.TopologyBank)
+
+    @property
+    def comm_interval(self) -> int:
+        """tau: the topology's communication interval (1 = every step)."""
+        return int(getattr(self.topology, "comm_interval", 1))
+
+    @property
+    def node_size(self) -> int:
+        """Agents per node of a hierarchical topology (1 otherwise)."""
+        return int(getattr(self.topology, "node_size", 1))
+
+    @property
+    def _hier(self) -> bool:
+        """True when the engine runs the two-level wire: exact intra-node
+        averaging (free) and the encoded inter-node exchange.  node_size 1
+        stays False: the composite graph then is the inter graph, and the
+        neighbor gather runs as on the flat path."""
+        return self.gossip == "hier" and self.node_size > 1
 
     @property
     def n(self) -> int:
@@ -187,8 +250,34 @@ class FlatEngineBase:
         return g if g.ndim == 3 else self.blockify(g)
 
     def _mix(self, buf: torch.Tensor) -> torch.Tensor:
-        """W @ buf along the agent axis (pads are zero -> stay zero)."""
-        return self._dense.mix(buf)
+        """W @ buf along the agent axis (pads are zero -> stay zero).  On a
+        bank, round 0: the init-time convention (at a consensus start every
+        round's W x equals x)."""
+        return self._dense.for_round(0).mix(buf)
+
+    def mix_round(self, buf: torch.Tensor, step: int) -> torch.Tensor:
+        """W_k @ buf through the engine's gossip backend, with the round of
+        step k (a host int) on a bank, the fixed W otherwise.  For engine
+        state that is not wire traffic (reference buffers such as LEAD's
+        H, which receivers track as replicas), so no fault mask applies."""
+        if not self._bank:
+            return self._mix(buf)
+        if self.gossip == "dense":
+            out = self._dense.for_round(step).mix(buf)
+        else:
+            out = self._neighbor.for_round(step).mix(buf)
+        mark("round_mix")
+        return out
+
+    def _host_step(self, s, step):
+        """The step counter as a host int where the step needs it (a bank
+        picks its round, an interval gates its wire): the caller's `step`,
+        else state.k read off its device (one synchronisation)."""
+        if step is not None:
+            return int(step)
+        if self._bank or self.comm_interval > 1:
+            return int(s.k)
+        return None
 
     def _rows(self, buf: torch.Tensor) -> torch.Tensor:
         """(n, nb, block) -> (n*nb, block): one kernel call for all agents."""
@@ -212,25 +301,30 @@ class FlatEngineBase:
         """seed ^ k, the uint32 seed of step k's draws, on k's device."""
         return torch.bitwise_xor(k.to(torch.int64), int(seed) & _MASK32)
 
-    def _dither_plane(self, seed: int, k: torch.Tensor) -> torch.Tensor:
-        """U[0,1) dither (n, nb, block), seeded with seed ^ k on the
-        device."""
-        return fast_uniform((self.n, self.nb, self.block),
+    def _dither_plane(self, seed: int, k: torch.Tensor,
+                      rows: int = None) -> torch.Tensor:
+        """U[0,1) dither (rows, nb, block), seeded with seed ^ k on the
+        device; rows defaults to the agent count (the hier wire draws
+        node-level planes)."""
+        rows = self.n if rows is None else rows
+        return fast_uniform((rows, self.nb, self.block),
                             self._step_seed(seed, k))
 
-    def _draws(self, comp, seed: int, k: torch.Tensor) -> Dict[str, Any]:
-        """The random input of `comp`'s encode_blocks at step k, from the
-        counter-hash stream seeded seed ^ k: no input for exact TopK, the
-        (n, m) sample indices for approximate TopK, else the (n, dim)
-        uniforms of the logical elements (the dither plane's)."""
+    def _draws(self, comp, seed: int, k: torch.Tensor,
+               rows: int) -> Dict[str, Any]:
+        """The random input of `comp`'s encode_blocks at step k for a
+        message of `rows` rows, from the counter-hash stream seeded seed ^
+        k: no input for exact TopK, the (rows, m) sample indices for
+        approximate TopK, else the (rows, dim) uniforms of the logical
+        elements (the dither plane's)."""
         if isinstance(comp, TopK):
             if not comp.approx_threshold:
                 return {}
-            u = fast_uniform((self.n, comp.sample_size(self.dim)),
+            u = fast_uniform((rows, comp.sample_size(self.dim)),
                              self._step_seed(seed, k))
             mark("dither")
             return {"idx": TopK.indices_from_uniform(u, self.dim)}
-        u = self.unblockify(self._dither_plane(seed, k))
+        u = self.unblockify(self._dither_plane(seed, k, rows))
         mark("dither")
         return {"u": u}
 
@@ -255,23 +349,24 @@ class FlatEngineBase:
                 f"{type(comp).__name__} does not implement the flat "
                 "encode_blocks/decode_blocks wire protocol")
         if _is_fused_quantizer(comp):
-            u = self._dither_plane(seed, k)
+            u = self._dither_plane(seed, k, buf.shape[0])
             mark("dither")
             code, scale = _q.encode(self._rows(buf), self._rows(u),
                                     bits=comp.bits)
             mark("encode")
             return self.quant_payload(code, scale, comp.bits)
-        payload, bits = comp.encode_blocks(buf, self.dim,
-                                           **self._draws(comp, seed, k))
+        payload, bits = comp.encode_blocks(
+            buf, self.dim, **self._draws(comp, seed, k, buf.shape[0]))
         mark("encode")
         return payload, comp.decode_blocks, bits
 
     def quant_payload(self, code: torch.Tensor, scale: torch.Tensor,
                       bits: int):
         """(payload, decode, wire_bits) for fused-quantizer outputs: code
-        int8 / scale f32 in row layout (n*nb, ...).  The receiver decode is
-        the K2 kernel; the wire carries (b+1)-bit codes for the d logical
-        elements and one f32 scale per logical block."""
+        int8 / scale f32 in row layout (rows*nb, ...), rows the agents or,
+        on the hier wire, the nodes.  The receiver decode is the K2
+        kernel; the wire carries (b+1)-bit codes for the d logical elements
+        and one f32 scale per logical block."""
         shape3 = (-1, self.nb, self.block)
         payload = {"code": code.reshape(shape3),
                    "scale": scale.reshape(-1, self.nb, 1)}
@@ -286,13 +381,22 @@ class FlatEngineBase:
                           dtype=torch.float32, device=code.device)
         return payload, decode, wire
 
-    def mix_payload(self, payload, decode):
+    def mix_payload(self, payload, decode, step: int = None):
         """Communication stage: (q, W q) with q = decode(payload), decoded
         exactly ONCE; the one decoded copy serves the receiver-own view and
-        the mix."""
+        the mix.  On a bank, step (the host step counter) picks the round
+        graph; on the hier wire q is block-constant (the decode broadcasts
+        each node's payload), so its node view is exact and only node-level
+        buffers travel the inter graph."""
         q = decode(payload)
         mark("decode")
-        wq = self._mix(q) if self.gossip == "dense" else self._neighbor.mix(q)
+        if self._hier:
+            hg = self._hg
+            wq = hg.broadcast(hg.inter.mix(hg.node_view(q)))
+        elif self.gossip == "dense":
+            wq = self._dense.for_round(step or 0).mix(q)
+        else:
+            wq = self._neighbor.for_round(step or 0).mix(q)
         mark("mix")
         return q, wq
 
@@ -305,25 +409,45 @@ class FlatEngineBase:
         return faults_mod.init_fault_state(self.faults, state.x)
 
     def mix_payload_faulted(self, payload, decode, k: torch.Tensor,
-                            fstate: faults_mod.FaultState):
+                            fstate: faults_mod.FaultState, step: int = None):
         """The communication stage under the engine's FaultModel:
         (q, wq, new_fstate).  q is the clean own decode (an agent needs no
         wire to read its own payload); wq the degraded mix, where a link
         that did not deliver at step k is renormalized away
         (policy="renormalize") or served from the sender's last good
         broadcast (policy="stale").  Undetected corruption hits the wire
-        copy only, never q or the self column."""
+        copy only, never q or the self column.  The masks hash the device
+        counter k; on a bank they compose with the round graph of `step`
+        (the host counter), so only links that exist this round drop.  On
+        the hier wire faults hit node -> node inter links and node
+        broadcasts (intra-node averaging is local arithmetic): a lost
+        inter link stalls every agent of the receiving node, so the
+        staleness age repeats node-wise over agents."""
         fm = self.faults
         q = decode(payload)
         mark("decode")
+        if self._hier:
+            hg = self._hg
+            qn = hg.node_view(q)
+            qn_tx = fm.corrupt_values(qn, k)
+            mask = fm.table_mask(k, hg.inter.neighbors)
+            wq = hg.broadcast(hg.inter.mix_masked(qn, mask, x_tx=qn_tx))
+            ok = torch.repeat_interleave(fm.broadcast_ok(k, hg.m),
+                                         self.node_size)
+            age = torch.where(ok, torch.zeros_like(fstate.age),
+                              fstate.age + 1)
+            mark("mix")
+            return q, wq, faults_mod.FaultState(cache=fstate.cache, age=age)
         q_tx = fm.corrupt_values(q, k)
         cache = fstate.cache if fm.policy == "stale" else None
         if self.gossip == "dense":
             mask = fm.dense_mask(k, self.n)
-            wq = self._dense.mix_masked(q, mask, x_tx=q_tx, cache=cache)
+            wq = self._dense.for_round(step or 0).mix_masked(
+                q, mask, x_tx=q_tx, cache=cache)
         else:
-            mask = fm.table_mask(k, self._neighbor.neighbors)
-            wq = self._neighbor.mix_masked(q, mask, x_tx=q_tx, cache=cache)
+            nbr = self._neighbor.for_round(step or 0)
+            mask = fm.table_mask(k, nbr.neighbors)
+            wq = nbr.mix_masked(q, mask, x_tx=q_tx, cache=cache)
         ok = fm.broadcast_ok(k, self.n)
         age = torch.where(ok, torch.zeros_like(fstate.age), fstate.age + 1)
         new_cache = fstate.cache
@@ -338,57 +462,110 @@ class FlatEngineBase:
         """Pre-communication math: (msg, ctx)."""
         raise NotImplementedError
 
-    def apply_stage(self, s, gb, q, wq, hy, ctx):
-        """Post-communication math: (new_state, comp_err)."""
+    def apply_stage(self, s, gb, q, wq, hy, ctx, step=None):
+        """Post-communication math: (new_state, comp_err).  step is the
+        host step counter, which the bank recomputations read."""
         raise NotImplementedError
 
     def local_stage(self, s, gb, hy):
-        """The no-communication step of a communication interval; the
-        interval path is not ported, so only LEAD (which the reference's
-        tests pin) has one."""
-        raise NotImplementedError(
-            f"{type(self).__name__}.local_stage (communication intervals) "
-            f"is {_LATER}")
+        """The no-communication step of a communication interval
+        (``k % comm_interval != 0``): (new_state, comp_err) with zero wire
+        traffic.  Default: self-delivery, the message as its own q and wq
+        (the W = I step), right for engines that transmit (a surrogate of)
+        their iterate and mix it in (DGD, NIDS, EXTRA, D2, QDGD,
+        DeepSqueeze).  Engines whose apply_stage advances a communication
+        tracking state (LEAD's h/hw/d, CHOCO's xhat, DCD's hats) override
+        it to freeze that state."""
+        msg, ctx = self.message(s, gb, hy)
+        return self.apply_stage(s, gb, msg, msg, hy, ctx)
 
     def encode_stage(self, s, gb, seed: int, hy):
-        """message + wire encode: (payload, decode, wire_bits, ctx)."""
+        """message + wire encode: (payload, decode, wire_bits, ctx).  On
+        the hier wire each node encodes the mean of its agents' messages
+        once: the payload has m = n / node_size rows, the decode broadcasts
+        the node estimate back to its agents, and the per-agent bits are
+        the node payload's over node_size."""
         msg, ctx = self.message(s, gb, hy)
         mark("message")
+        if self._hier:
+            hg = self._hg
+            payload, node_decode, bits = self.encode_payload(
+                hg.intra_mean(msg), seed, s.k)
+            return (payload, lambda pl: hg.broadcast(node_decode(pl)),
+                    bits / self.node_size, ctx)
         payload, decode, bits = self.encode_payload(msg, seed, s.k)
         return payload, decode, bits, ctx
 
-    def _step_core(self, s, g, seed: int, hy):
-        """The family's one iteration shape: encode -> gossip -> apply."""
+    def _intra_project(self, state):
+        """Block-average every agent-leading buffer of a hier engine's
+        state (exact intra-node averaging: local arithmetic, no wire), after
+        apply_stage on a communication step: each node then is one agent
+        of the inter-graph algorithm seeing its block-mean gradient.  The
+        counter k passes through."""
+        hg = self._hg
+        return type(state)(*(
+            hg.broadcast(hg.intra_mean(v))
+            if v.ndim >= 1 and v.shape[0] == self.n else v for v in state))
+
+    def _local(self, s, gb, hy):
+        """(new_state, comp_err 0, bits 0) of an interval's local step."""
+        new, _ = self.local_stage(s, gb, hy)
+        zero = torch.zeros((), dtype=torch.float32, device=gb.device)
+        mark("local")
+        return new, zero, zero
+
+    def _step_core(self, s, g, seed: int, hy, step: int = None):
+        """The family's one iteration shape: encode -> gossip -> apply.
+        With comm_interval tau > 1 the whole wire fires only at
+        k % tau == 0, decided on the host; the other steps run local_stage
+        (zero bits, comp_err 0)."""
         gb = self._blockify_g(g)
+        step = self._host_step(s, step)
+        if self.comm_interval > 1 and step % self.comm_interval:
+            return self._local(s, gb, hy)
         payload, decode, bits, ctx = self.encode_stage(s, gb, seed, hy)
-        q, wq = self.mix_payload(payload, decode)
-        new, comp_err = self.apply_stage(s, gb, q, wq, hy, ctx)
+        q, wq = self.mix_payload(payload, decode, step)
+        new, comp_err = self.apply_stage(s, gb, q, wq, hy, ctx, step)
+        if self._hier:
+            new = self._intra_project(new)
+            mark("intra_project")
         return new, comp_err, bits
 
     # -- driver protocol (engines driven directly by run()) -----------------
-    def step_with_wire(self, state, g, seed: int):
+    def step_with_wire(self, state, g, seed: int, step: int = None):
         """(new_state, comp_err, wire_bits) with the engine's stored hypers
-        resolved at state.k."""
-        return self._step_core(state, g, seed, self.hypers_at(state.k))
+        resolved at state.k; step is the host step counter (== state.k),
+        which run() passes."""
+        return self._step_core(state, g, seed, self.hypers_at(state.k), step)
 
-    def step_with_wire_faulted(self, state, fstate, g, seed: int):
+    def step_with_wire_faulted(self, state, fstate, g, seed: int,
+                               step: int = None):
         """The faulted twin of step_with_wire: the same iteration, with the
         communication stage through mix_payload_faulted and a FaultState
         riding along.  Returns (new_state, new_fstate, comp_err,
-        wire_bits)."""
+        wire_bits).  A local step of an interval leaves the FaultState as
+        it was: no wire fired, so nothing dropped and no age advanced."""
         hy = self.hypers_at(state.k)
         gb = self._blockify_g(g)
+        step = self._host_step(state, step)
+        if self.comm_interval > 1 and step % self.comm_interval:
+            new, zero, _ = self._local(state, gb, hy)
+            return new, fstate, zero, zero
         payload, decode, bits, ctx = self.encode_stage(state, gb, seed, hy)
-        q, wq, fs = self.mix_payload_faulted(payload, decode, state.k, fstate)
-        new, comp_err = self.apply_stage(state, gb, q, wq, hy, ctx)
+        q, wq, fs = self.mix_payload_faulted(payload, decode, state.k, fstate,
+                                             step)
+        new, comp_err = self.apply_stage(state, gb, q, wq, hy, ctx, step)
+        if self._hier:
+            new = self._intra_project(new)
+            mark("intra_project")
         return new, fs, comp_err, bits
 
     def x_of(self, state):
         """Current iterates as (n, d) regardless of the blocked layout."""
         return self.unblockify(state.x)
 
-    def step(self, state, g, seed: int):
-        return self.step_with_wire(state, g, seed)[0]
+    def step(self, state, g, seed: int, step: int = None):
+        return self.step_with_wire(state, g, seed, step)[0]
 
 
 # derived, not hand-maintained: a field added to the base is a layout knob,

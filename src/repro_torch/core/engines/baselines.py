@@ -29,10 +29,13 @@ bits on the wire; comp_err exactly zero):
 
   * FlatDGDEngine, FlatNIDSEngine, FlatEXTRAEngine, FlatD2Engine
 
-Not ported yet (ROADMAP.md, 'Modules still to port'): the time-varying
-(TopologyBank) branches of CHOCO and DCD - the port's topologies are static,
-and ``core/topology.materialize`` raises on a bank - and ``local_stage``
-(communication intervals), which the base raises for.
+On a TopologyBank the hat-state engines (CHOCO, DCD) recompute their mixed
+public copies ``xhat_w`` from the step's round graph W_{k mod P}, as
+FlatLEADEngine does for H_w: the incremental ``xhat_w += W q`` would
+integrate past rounds' graphs and drift off the xhat_w == W xhat
+invariant.  On a local step of a communication interval they run plain
+local SGD with the hats frozen (``local_stage``); the other engines take
+the base's self-delivery step.
 """
 from __future__ import annotations
 
@@ -84,6 +87,7 @@ class FlatCHOCOEngine(FlatEngineBase):
     q      = decode(encode(x_half - xhat))     (payload on the wire)
     xhat  += q
     xhat_w += W q                 (static W - incremental)
+    xhat_w  = W_k xhat + W_k q    (TopologyBank - the step's graph)
     x+     = x_half + gamma * (xhat_w - xhat)
     """
     eta: Schedule = 0.1
@@ -101,16 +105,28 @@ class FlatCHOCOEngine(FlatEngineBase):
         x_half = s.x - hy["eta"] * gb
         return x_half - s.xhat, x_half
 
-    def apply_stage(self, s: HatState, gb, q, wq, hy, ctx):
+    def apply_stage(self, s: HatState, gb, q, wq, hy, ctx, step=None):
         x_half = ctx
         xhat = s.xhat + q
-        xhat_w = s.xhat_w + wq
+        if self._bank:
+            # wq is W_k q; xhat_w+ = W_k (xhat + q) with the step's graph.
+            # xhat is reference state, not wire traffic: a clean mix
+            xhat_w = self.mix_round(s.xhat, self._host_step(s, step)) + wq
+        else:
+            xhat_w = s.xhat_w + wq
         x = x_half + hy["gamma"] * (xhat_w - xhat)
         new = HatState(x=x, xhat=xhat, xhat_w=xhat_w, k=s.k + 1)
         mark("update")
         err = rel_err(q, x_half - s.xhat, x_half)
         mark("comp_err")
         return new, err
+
+    def local_stage(self, s: HatState, gb, hy):
+        """Interval step: plain local SGD (x+ = x - eta g) with the public
+        copies xhat / xhat_w frozen: nothing was transmitted, so the
+        receivers' replicas cannot have moved."""
+        return (HatState(x=s.x - hy["eta"] * gb, xhat=s.xhat,
+                         xhat_w=s.xhat_w, k=s.k + 1), _zero_err(s.x.device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +151,7 @@ class FlatDeepSqueezeEngine(FlatEngineBase):
         v = s.x - hy["eta"] * gb + s.e
         return v, v
 
-    def apply_stage(self, s: ErrorState, gb, c, wc, hy, ctx):
+    def apply_stage(self, s: ErrorState, gb, c, wc, hy, ctx, step=None):
         v = ctx
         e = v - c
         x = c + hy["gamma"] * (wc - c)
@@ -166,7 +182,7 @@ class FlatQDGDEngine(FlatEngineBase):
     def message(self, s: SimpleState, gb, hy):
         return s.x, None
 
-    def apply_stage(self, s: SimpleState, gb, q, wq, hy, ctx):
+    def apply_stage(self, s: SimpleState, gb, q, wq, hy, ctx, step=None):
         x = s.x + hy["gamma"] * (wq - q) - hy["eta"] * gb
         new = SimpleState(x=x, k=s.k + 1)
         mark("update")
@@ -182,6 +198,7 @@ class FlatDCDEngine(FlatEngineBase):
     x+    = xhat_w - eta g
     q     = decode(encode(x+ - xhat));  xhat += q
     xhat_w += W q                 (static W - incremental)
+    xhat_w  = W_k xhat + W_k q    (TopologyBank - the step's graph)
     (unstable under aggressive compression - reproduced as in the paper.)
     """
     eta: Schedule = 0.1
@@ -198,14 +215,23 @@ class FlatDCDEngine(FlatEngineBase):
         x = s.xhat_w - hy["eta"] * gb
         return x - s.xhat, x
 
-    def apply_stage(self, s: HatState, gb, q, wq, hy, ctx):
+    def apply_stage(self, s: HatState, gb, q, wq, hy, ctx, step=None):
         x = ctx
-        new = HatState(x=x, xhat=s.xhat + q, xhat_w=s.xhat_w + wq,
-                       k=s.k + 1)
+        if self._bank:
+            xhat_w = self.mix_round(s.xhat, self._host_step(s, step)) + wq
+        else:
+            xhat_w = s.xhat_w + wq
+        new = HatState(x=x, xhat=s.xhat + q, xhat_w=xhat_w, k=s.k + 1)
         mark("update")
         err = rel_err(q, x - s.xhat, x)
         mark("comp_err")
         return new, err
+
+    def local_stage(self, s: HatState, gb, hy):
+        """Interval step: plain local SGD with the hats frozen (as
+        FlatCHOCOEngine.local_stage)."""
+        return (HatState(x=s.x - hy["eta"] * gb, xhat=s.xhat,
+                         xhat_w=s.xhat_w, k=s.k + 1), _zero_err(s.x.device))
 
 
 # -- exact baselines: no encode stage, the raw buffer is the payload --------
@@ -242,7 +268,7 @@ class FlatDGDEngine(_FlatExactEngine):
     def message(self, s: SimpleState, gb, hy):
         return s.x, None
 
-    def apply_stage(self, s: SimpleState, gb, q, wx, hy, ctx):
+    def apply_stage(self, s: SimpleState, gb, q, wx, hy, ctx, step=None):
         return _exact(SimpleState(x=wx - hy["eta"] * gb, k=s.k + 1))
 
 
@@ -262,7 +288,7 @@ class FlatNIDSEngine(_FlatExactEngine):
         y = s.x - hy["eta"] * gb - hy["eta"] * s.d
         return y, y
 
-    def apply_stage(self, s: DualState, gb, q, wy, hy, ctx):
+    def apply_stage(self, s: DualState, gb, q, wy, hy, ctx, step=None):
         y = ctx
         d = s.d + (y - wy) / (2.0 * hy["eta"])
         x = s.x - hy["eta"] * gb - hy["eta"] * d
@@ -288,7 +314,7 @@ class FlatEXTRAEngine(_FlatExactEngine):
     def message(self, s: ExtraState, gb, hy):
         return s.x, None
 
-    def apply_stage(self, s: ExtraState, gb, q, wx, hy, ctx):
+    def apply_stage(self, s: ExtraState, gb, q, wx, hy, ctx, step=None):
         wtx_prev = 0.5 * (s.x_prev + s.wx_prev)
         x = s.x + wx - wtx_prev - hy["eta"] * (gb - s.g_prev)
         return _exact(ExtraState(x=x, x_prev=s.x, wx_prev=wx, g_prev=gb,
@@ -312,7 +338,7 @@ class FlatD2Engine(_FlatExactEngine):
         inner = 2.0 * s.x - s.x_prev - hy["eta"] * gb + hy["eta"] * s.g_prev
         return inner, inner
 
-    def apply_stage(self, s: PrevGradState, gb, q, winner, hy, ctx):
+    def apply_stage(self, s: PrevGradState, gb, q, winner, hy, ctx, step=None):
         inner = ctx
         x = 0.5 * (inner + winner)
         return _exact(PrevGradState(x=x, x_prev=s.x, g_prev=gb, k=s.k + 1))

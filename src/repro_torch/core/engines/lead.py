@@ -19,8 +19,18 @@ with the wire in between:
 The fused kernels use the left-to-right subtraction order of the
 reference, so from a common state, with the same gradient and the same
 dither seed, a step matches ``src/repro/core/engines/lead.py`` up to
-knife-edge code flips.  The time-varying (bank) branch of ``apply_stage``
-and the hierarchical wire are not ported yet.
+knife-edge code flips.
+
+On a TopologyBank the engine mixes with the step's round graph W_{k mod P}
+and recomputes H_w from it (``apply_stage``): the incremental H_w would
+mix past rounds' graphs.  Stability is a property of the bank: the
+reference measures LEAD reaching consensus on one-peer exponential banks
+up to n = 16 and on random matchings at n = 32 (gamma <~ 0.3), while on
+``exponential_onepeer(32)`` the dual recursion's period monodromy exceeds
+radius 1 at every gamma; the port reproduces that, it does not fix it.
+On the hier wire LEAD takes the base's encode path (the node mean comes
+between the difference and the encode, so K1 does not apply): the
+difference in plain torch, its node mean, K4 and K2, then K3.
 """
 from __future__ import annotations
 
@@ -92,10 +102,10 @@ class FlatLEADEngine(FlatEngineBase):
 
     def encode_stage(self, s: FlatLEADState, gb, seed: int, hy):
         """For the fused p=inf quantizer the Y-difference and the encode
-        happen in one kernel pass (K1); otherwise the base's message +
-        encode_payload path."""
+        happen in one kernel pass (K1); otherwise, and on the hier wire,
+        the base's message + encode_payload path."""
         comp = self.compressor
-        if comp is not None and _is_fused_quantizer(comp):
+        if comp is not None and _is_fused_quantizer(comp) and not self._hier:
             u = self._dither_plane(seed, s.k)
             mark("dither")
             code, scale = _lu.lead_diff_encode(
@@ -106,9 +116,20 @@ class FlatLEADEngine(FlatEngineBase):
             return payload, decode, bits, None
         return super().encode_stage(s, gb, seed, hy)
 
-    def apply_stage(self, s: FlatLEADState, gb, qh, wqh, hy, ctx=None):
+    def apply_stage(self, s: FlatLEADState, gb, qh, wqh, hy, ctx=None,
+                    step=None):
         """Post-communication fused H / H_w / D / X update (lines 5-7, K3)
-        plus the exact in-step comp_err ||Qh - (Y-H)|| / ||Y||."""
+        plus the exact in-step comp_err ||Qh - (Y-H)|| / ||Y||.
+
+        On a bank the invariant hw == W h no longer holds by increments
+        (hw would sum alpha W_j q over past rounds' graphs).  K3 computes
+        yh_w = hw + wqh, so it is fed the innovation (W_k h + wqh) - hw,
+        which gives yh_w = W_k (h + qh) with the step's graph.  H is
+        reference state, not wire traffic, so this mix is clean on the
+        faulted path too."""
+        if self._bank:
+            wqh = (self.mix_round(s.h, self._host_step(s, step)) + wqh
+                   - s.hw)
         xo, do, ho, hwo = _lu.lead_update(
             self._rows(s.x), self._rows(gb), self._rows(s.d),
             self._rows(s.h), self._rows(s.hw), self._rows(qh),
@@ -132,11 +153,12 @@ class FlatLEADEngine(FlatEngineBase):
 
     # -- per-call-hyper entry points (LEADSim) -------------------------------
     def step_wire(self, state: FlatLEADState, g: torch.Tensor, seed: int,
-                  hyper=None):
+                  hyper=None, step: int = None):
         """One LEAD iteration on flat buffers; g: gradients at state.x,
         either (n, d) or already (n, nb, block).  `seed` is the uint32
         dither seed (the step's plane is seeded with seed ^ k).  `hyper`
-        defaults to the engine's stored hypers.
+        defaults to the engine's stored hypers; `step` is the host step
+        counter (== state.k), which run() passes.
 
         Returns (new_state, comp_err, wire_bits):
           comp_err  = ||Qh - (Y-H)|| / ||Y||, the compression error this
@@ -146,13 +168,14 @@ class FlatLEADEngine(FlatEngineBase):
             hyper = self.hyper
         hy = {f: _at(getattr(hyper, f), state.k)
               for f in ("eta", "gamma", "alpha")}
-        return self._step_core(state, g, seed, hy)
+        return self._step_core(state, g, seed, hy, step)
 
-    def step_with_wire(self, state: FlatLEADState, g, seed: int):
+    def step_with_wire(self, state: FlatLEADState, g, seed: int,
+                       step: int = None):
         """The family's driver protocol with stored hypers."""
-        return self.step_wire(state, g, seed, self.hyper)
+        return self.step_wire(state, g, seed, self.hyper, step)
 
     def step(self, state: FlatLEADState, g: torch.Tensor, seed: int,
-             hyper=None) -> FlatLEADState:
+             hyper=None, step: int = None) -> FlatLEADState:
         """The new state alone."""
-        return self.step_wire(state, g, seed, hyper)[0]
+        return self.step_wire(state, g, seed, hyper, step)[0]

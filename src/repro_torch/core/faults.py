@@ -38,8 +38,8 @@ so it runs in int64 masked with 0xFFFFFFFF: an int64 product wraps modulo
 2^64, and its low 32 bits are the uint32 product's (as ``fast_uniform``
 does, core/compression.py).
 
-Time-varying topology banks are not ported yet (ROADMAP.md, 'Modules still
-to port'): :func:`step_metrics` raises on one.
+On a time-varying topology bank the link metrics are taken over each
+step's round graph (:func:`link_metrics`).
 """
 from __future__ import annotations
 
@@ -62,9 +62,6 @@ _SALT_CORRUPT = 0x4004
 _SALT_ELEM = 0x5005
 
 _GOLD = 0x9E3779B9            # 2^32 / golden ratio (Weyl increment)
-
-_BANKS = ("time-varying topology banks are not ported yet (ROADMAP.md, "
-          "'Modules still to port')")
 
 
 def _device_of(*xs, device: DeviceLike = None) -> torch.device:
@@ -308,16 +305,25 @@ def link_metrics(model: FaultModel, topo, ks: torch.Tensor):
 
     dropped_links counts directed real edges (``topo.edge_mask``) that did
     not deliver; realized_gap is 1 - sigma_2 of the renormalized realized
-    matrix (``topo.spectral_gap`` for the fault-free symmetric W).  Both
-    are (K,) f32.  ``torch.linalg.svdvals`` synchronises a card with the
-    host, so ``simulator.run`` calls this once, on the host, after its
-    loop: the masks depend only on (seed, step, topology)."""
-    if hasattr(topo, "period"):
-        raise NotImplementedError(_BANKS)
+    matrix (``topo.spectral_gap`` for the fault-free symmetric W).  On a
+    TopologyBank both are taken over each step's round graph (round
+    k % P): only edges that exist that round count, and the fault-free
+    gap of a degree-1 round is 0 (the contraction lives in the period
+    product).  Both are (K,) f32.  ``torch.linalg.svdvals`` synchronises
+    a card with the host, so ``simulator.run`` calls this once, on the
+    host, after its loop: the masks depend only on (seed, step,
+    topology)."""
     dev = ks.device
     n = topo.n
-    W = torch.as_tensor(np.asarray(topo.W), dtype=torch.float32, device=dev)
-    edges = torch.as_tensor(topo.edge_mask, device=dev)
+    if hasattr(topo, "period"):                  # TopologyBank: step's round
+        r = ks.to(torch.int64) % topo.period
+        W = torch.as_tensor(np.asarray(topo.Ws), dtype=torch.float32,
+                            device=dev)[r]
+        edges = torch.as_tensor(topo.edge_masks, device=dev)[r]
+    else:
+        W = torch.as_tensor(np.asarray(topo.W), dtype=torch.float32,
+                            device=dev)
+        edges = torch.as_tensor(topo.edge_mask, device=dev)
     m = model.dense_mask(ks.reshape(-1, 1, 1), n)
     dropped = (edges & ~m).sum((-2, -1)).to(torch.float32)
     if n == 1:
@@ -328,8 +334,9 @@ def link_metrics(model: FaultModel, topo, ks: torch.Tensor):
 
 def step_metrics(model: FaultModel, topo, k, age: torch.Tensor):
     """The Trace's four fault metrics for step k as 0-d f32 tensors on
-    age's device: dropped_links, realized_gap (see :func:`link_metrics`)
-    and the mean and max of the staleness ages."""
+    age's device: dropped_links, realized_gap (see :func:`link_metrics`;
+    a bank's round graph of step k) and the mean and max of the staleness
+    ages."""
     ks = torch.as_tensor(k, device=age.device).reshape(1)
     dropped, gap = link_metrics(model, topo, ks)
     agef = age.to(torch.float32)

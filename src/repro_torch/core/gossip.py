@@ -10,18 +10,26 @@
   engine decodes before the (virtual) exchange and hands the one decoded
   copy to ``mix``.
 
+* HierarchicalGossip - two-level mixing for ``topology.hierarchical``
+  graphs: exact (free) intra-node block averaging, then an
+  EncodedNeighborGossip over the inter-node graph, so only node-mean
+  payloads pay wire bits.
 * EncodedRingGossip - the uniform-ring special case of
   EncodedNeighborGossip, kept for its (w_self, w_neighbor) reading API:
   decode once, then roll the decoded buffer to the ring neighbours.
 
 DenseGossip and EncodedNeighborGossip hold their tables as tensors on one
-device, copied there once at construction.  Both also have ``mix_masked``,
-the degraded mix under a core/faults.py link-survival mask (renormalized
-surviving weights, or the stale cache for dropped links), which the
-engines' fault layer uses (engines/base.py ``mix_payload_faulted``).  The
-time-varying (bank) forms and the hierarchical backend are not ported yet,
-nor is ``RingGossip``, the reference's collective-permute ring over a mesh
-axis (it belongs with the torch.distributed trainer).
+device, copied there once at construction.  Built from a
+core/topology.TopologyBank they hold the bank's stacked tables (a leading
+round axis of length P), and ``for_round(k)`` is the backend of step k: a
+view of round ``k % P``, chosen with the host's step counter, so a
+time-varying step copies nothing and waits for nothing.  Both also have
+``mix_masked``, the degraded mix under a core/faults.py link-survival mask
+(renormalized surviving weights, or the stale cache for dropped links),
+which the engines' fault layer uses (engines/base.py
+``mix_payload_faulted``).  ``RingGossip``, the reference's
+collective-permute ring over a mesh axis, is not ported: it belongs with
+the torch.distributed trainer.
 """
 from __future__ import annotations
 
@@ -37,19 +45,29 @@ from repro_torch.utils.tree import Pytree, tree_leaves, tree_map
 
 @dataclasses.dataclass(frozen=True)
 class DenseGossip:
-    """mix(X) = W @ X along the leading agent axis."""
-    W: torch.Tensor                      # (n, n) f32
+    """mix(X) = W @ X along the leading agent axis.  W is (n, n), or the
+    (P, n, n) stack of a bank's rounds, whose ``for_round(k)`` mixes."""
+    W: torch.Tensor                      # (n, n) or (P, n, n) f32
 
     @staticmethod
     def from_topology(topo, device: DeviceLike = None) -> "DenseGossip":
-        """`topo` is a Topology or any (n, n) array."""
-        W = np.asarray(getattr(topo, "W", topo), np.float64)
+        """`topo` is a Topology, a TopologyBank (its stacked ``Ws``) or any
+        (n, n) array."""
+        W = np.asarray(getattr(topo, "Ws", getattr(topo, "W", topo)),
+                       np.float64)
         return DenseGossip(W=torch.as_tensor(W, dtype=torch.float32,
                                              device=resolve_device(device)))
 
+    def for_round(self, k: int) -> "DenseGossip":
+        """The backend of step k (a host int): round ``k % P`` of a bank's
+        stack, a view; a static backend is its own every round."""
+        if self.W.ndim == 2:
+            return self
+        return DenseGossip(W=self.W[k % self.W.shape[0]])
+
     @property
     def n(self) -> int:
-        return self.W.shape[0]
+        return self.W.shape[-1]
 
     def mix(self, tree: Pytree) -> Pytree:
         """W @ x for every leaf x, each flattened to one 2-D matmul over
@@ -102,18 +120,31 @@ class EncodedNeighborGossip:
         out[i] = weights[i, 0] * x[i] + sum_j weights[i, 1+j] * x[nbr[i, j]]
 
     - exactly ``W @ x`` up to summation order.  Pads (self index, weight 0)
-    contribute exactly 0."""
-    neighbors: torch.Tensor              # (n, deg_max) int64
-    weights: torch.Tensor                # (n, deg_max + 1) f32
+    contribute exactly 0.  Built from a TopologyBank the tables carry a
+    leading round axis, and ``for_round(k)`` mixes."""
+    neighbors: torch.Tensor              # ([P,] n, deg_max) int64
+    weights: torch.Tensor                # ([P,] n, deg_max + 1) f32
 
     @staticmethod
     def from_topology(topo, device: DeviceLike = None) -> "EncodedNeighborGossip":
+        """`topo` is a Topology or a TopologyBank (its shared-layout stacked
+        tables, copied once)."""
         dev = resolve_device(device)
         return EncodedNeighborGossip(
             neighbors=torch.as_tensor(np.asarray(topo.neighbors),
                                       dtype=torch.int64, device=dev),
             weights=torch.as_tensor(np.asarray(topo.weights),
                                     dtype=torch.float32, device=dev))
+
+    def for_round(self, k: int) -> "EncodedNeighborGossip":
+        """The backend of step k (a host int): round ``k % P`` of a bank's
+        stacked tables, views; the bank-wide table width keeps every round
+        the same shape.  A static backend is its own every round."""
+        if self.neighbors.ndim == 2:
+            return self
+        r = k % self.neighbors.shape[0]
+        return EncodedNeighborGossip(neighbors=self.neighbors[r],
+                                     weights=self.weights[r])
 
     def mix(self, x: torch.Tensor) -> torch.Tensor:
         """Weighted neighbor gather, accumulated one neighbor column at a
@@ -148,6 +179,62 @@ class EncodedNeighborGossip:
                 mask[:, j].reshape(shape), x_tx[src], cache[src])
             out = out + w[:, 1 + j].reshape(shape) * val
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class HierarchicalGossip:
+    """Two-level mixing for topology.hierarchical graphs.
+
+    Blocks of ``node_size`` consecutive agents form one node.  The intra
+    level is exact averaging (``intra_mean``, no wire); only node-level
+    buffers travel the ``inter`` graph (an EncodedNeighborGossip over
+    ``topo.inter``'s table).  For any buffer x,
+
+        mix(x) = broadcast(W_inter @ intra_mean(x)) = kron(W_inter, J/s) @ x
+
+    at node granularity, O(m * deg * d) with m = n / s.  The engines'
+    ``gossip="hier"`` path encodes each node's intra-mean once and ships
+    that one payload over the inter table, so the wire carries inter-node
+    bytes only (payload / node_size per agent).  ``node_view`` reads row 0
+    of each block: exact for the block-constant buffers that path
+    produces."""
+    node_size: int
+    inter: EncodedNeighborGossip
+
+    @staticmethod
+    def from_topology(topo, device: DeviceLike = None) -> "HierarchicalGossip":
+        """Backend for a topology.HierarchicalTopology (its inter table is
+        copied to the device once)."""
+        return HierarchicalGossip(
+            node_size=int(topo.node_size),
+            inter=EncodedNeighborGossip.from_topology(topo.inter, device))
+
+    @property
+    def m(self) -> int:
+        """Node count of the inter graph."""
+        return int(self.inter.neighbors.shape[0])
+
+    def intra_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """(n, ...) -> (m, ...) block means, the exact intra-node mix."""
+        s = self.node_size
+        return x.reshape((x.shape[0] // s, s) + tuple(x.shape[1:])).mean(1)
+
+    def node_view(self, x: torch.Tensor) -> torch.Tensor:
+        """(n, ...) -> (m, ...) row 0 of each block; equals ``intra_mean``
+        on block-constant buffers, with no arithmetic."""
+        return x[::self.node_size]
+
+    def broadcast(self, xb: torch.Tensor) -> torch.Tensor:
+        """(m, ...) node-level buffer -> (n, ...) block-constant buffer."""
+        s, m = self.node_size, xb.shape[0]
+        rest = tuple(xb.shape[1:])
+        return xb[:, None].expand((m, s) + rest).reshape((m * s,) + rest)
+
+    def mix(self, tree: Pytree) -> Pytree:
+        """kron(W_inter, J/s) @ x leaf-wise (see the class docstring)."""
+        return tree_map(
+            lambda x: self.broadcast(self.inter.mix(self.intra_mean(x))),
+            tree)
 
 
 @dataclasses.dataclass(frozen=True)

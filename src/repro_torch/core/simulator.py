@@ -32,6 +32,11 @@ Fault injection: an algorithm carrying an active core/faults.FaultModel
 is driven through the engine's faulted wire, and the Trace's four fault
 fields get the per-step fault metrics.  An inactive model (every rate 0)
 takes the clean path, bit for bit.
+
+Time-varying (TopologyBank), two-level (``gossip="hier"``) and interval
+(``with_interval(tau)``) graphs run on the flat engines: run() hands each
+step its host counter, from which the engine picks the bank's round and
+gates the interval's wire without reading the card.
 """
 from __future__ import annotations
 
@@ -134,8 +139,9 @@ class LEADSim:
 
     @property
     def _topology(self):
-        """The static Topology (a sequence of round graphs, a time-varying
-        bank, raises: banks are not ported)."""
+        """Topology or TopologyBank (a periodic schedule or a sequence of
+        round graphs materializes into a bank; a live periodless schedule
+        raises, see topology.materialize)."""
         if self.topology is not None:
             return topology_mod.materialize(self.topology)
         return topology_mod.as_topology(self.gossip.W.cpu().numpy())
@@ -143,10 +149,16 @@ class LEADSim:
     @functools.cached_property
     def _gossip(self) -> DenseGossip:
         """The tree path's dense mixing backend: the given DenseGossip, or
-        one built once off the topology on the device."""
+        one built once off the topology on the device.  The tree path
+        mixes one static graph: a bank raises ValueError."""
         if self.gossip is not None:
             return self.gossip
-        return DenseGossip.from_topology(self._topology, self.device)
+        topo = self._topology
+        if isinstance(topo, topology_mod.TopologyBank):
+            raise ValueError(
+                "LEADSim(engine='tree') mixes one static graph; a "
+                "TopologyBank (time-varying gossip) needs engine='flat'")
+        return DenseGossip.from_topology(topo, self.device)
 
     def _flat_engine(self, dim: int):
         """The engine for `dim`, built once (its graph tables are copied to
@@ -176,19 +188,21 @@ class LEADSim:
             return lead_mod.init(x0, g0, self.hyper, self._gossip.mix, h0=x0)
         return self._flat_engine(self._dim_of(x0)).init(x0, g0, self.hyper)
 
-    def step_with_wire(self, state, g, seed: int):
+    def step_with_wire(self, state, g, seed: int, step: int = None):
         """(new_state, comp_err, wire_bits) of one LEAD iteration; wire_bits
         is the per-agent bits this step put on the wire: from the actual
         payload on the flat engine, the compressor's static wire_bits(d) on
-        the tree path (which never forms a payload)."""
+        the tree path (which never forms a payload).  step is the host
+        step counter the flat engine picks a bank's round and gates an
+        interval with (the tree path mixes one static graph)."""
         if self.engine == "tree":
             new, cerr = lead_mod.step_with_metrics(
                 state, g, seed, self.hyper, self._gossip.mix,
                 vmap_compress(self.compressor))
             return new, cerr, static_bits(self.compressor, g.shape[1],
                                           g.device)
-        return self._flat_engine(self._dim_of(g)).step_wire(state, g, seed,
-                                                            self.hyper)
+        return self._flat_engine(self._dim_of(g)).step_wire(
+            state, g, seed, self.hyper, step)
 
     def step_with_metrics(self, state, g, seed: int):
         """(new_state, comp_err) with comp_err = ||Qh-(Y-H)||/||Y||, the
@@ -202,9 +216,10 @@ class LEADSim:
     def init_fault_state(self, state):
         return self._flat_engine(self.dim).init_fault_state(state)
 
-    def step_with_wire_faulted(self, state, fstate, g, seed: int):
+    def step_with_wire_faulted(self, state, fstate, g, seed: int,
+                               step: int = None):
         return self._flat_engine(self._dim_of(g)).step_with_wire_faulted(
-            state, fstate, g, seed)
+            state, fstate, g, seed, step)
 
     def x_of(self, state):
         """Current iterates as (n, d) on either path."""
@@ -217,15 +232,22 @@ class LEADSim:
 
 
 def with_topology(algo, topology):
-    """`algo` rebound to a new (static) communication graph: flat engines
-    and LEADSim get the Topology itself, tree baselines a DenseGossip over
-    its W on their device."""
+    """`algo` rebound to a new communication graph: flat engines and
+    LEADSim get the Topology or TopologyBank itself, tree baselines a
+    DenseGossip over its W on their device.  A periodic schedule
+    materializes into a bank; a live periodless schedule raises
+    (topology.materialize), and so does a bank for a tree baseline."""
     topo = topology_mod.materialize(topology)
     if isinstance(algo, LEADSim):
         return dataclasses.replace(algo, gossip=None, topology=topo)
     if isinstance(algo, FlatEngineBase):
         return dataclasses.replace(algo, topology=topo)
     if isinstance(getattr(algo, "gossip", None), DenseGossip):
+        if isinstance(topo, topology_mod.TopologyBank):
+            raise TypeError(
+                f"{type(algo).__name__} is a tree baseline with a static "
+                "DenseGossip; a TopologyBank (time-varying gossip) needs a "
+                "flat engine (engine_for)")
         return dataclasses.replace(algo, gossip=DenseGossip.from_topology(
             topo, algo.gossip.W.device))
     raise TypeError(f"cannot rebind topology on {type(algo).__name__}")
@@ -253,6 +275,14 @@ class Trace(NamedTuple):
     did not deliver, realized_gap is 1 - sigma_2 of the renormalized
     realized mixing matrix, staleness_mean/max summarize the FaultState's
     ages.  run() always fills them; on a fault-free run all four are 0.
+
+    Hierarchical and interval wires: with ``gossip="hier"`` the link
+    metrics are computed over the inter-node graph, the only level with
+    wire links (intra-node averaging is local arithmetic and cannot drop).
+    With ``comm_interval`` tau > 1, bits_per_agent grows only on
+    communication steps (a skipped step ships zero bits), dropped_links
+    and realized_gap are 0 on skipped steps, and staleness ages freeze
+    there (no wire fired, so nothing aged).
     """
     dist: np.ndarray
     consensus: np.ndarray
@@ -306,7 +336,9 @@ def run(algo, problem, x_star, *, iters=300, seed: int = 0, stochastic=False,
     full gradient (the bounded-variance oracle of Assumption 3).  The
     initial gradient comes from the same oracle.
 
-    topology= swaps the algorithm's communication graph before running.
+    topology= swaps the algorithm's communication graph before running: a
+    Topology, a TopologyBank, a sequence of round graphs or a periodic
+    schedule (time-varying gossip: step k mixes with round k % P).
     Iteration `it` draws with sub_seed(seed, it) (its oracle with that
     seed's substream 1, the initial gradient with sub_seed(seed,
     2^32 - 1)'s), so a compressed or stochastic trace matches the
@@ -366,9 +398,9 @@ def run(algo, problem, x_star, *, iters=300, seed: int = 0, stochastic=False,
         mark("gradient")
         if faulted:
             new, fstate, cerr, bits = algo.step_with_wire_faulted(
-                state, fstate, g, s)
+                state, fstate, g, s, step=it)
         elif step_with_wire is not None:
-            new, cerr, bits = step_with_wire(state, g, s)
+            new, cerr, bits = step_with_wire(state, g, s, step=it)
         elif step_with_metrics is not None:
             new, cerr = step_with_metrics(state, g, s)
             bits = bits_per_step
@@ -403,10 +435,20 @@ def run(algo, problem, x_star, *, iters=300, seed: int = 0, stochastic=False,
                   staleness_mean=zeros, staleness_max=zeros)
     if faulted:
         # the masks of the recorded steps (state.k = it, the pre-step
-        # counter the wire used), realized on the host
+        # counter the wire used), realized on the host, at the wire's
+        # granularity: on a hier wire only the inter graph has links; an
+        # interval run fires no wire on its skipped steps (0 there)
         topo = algo._topology if isinstance(algo, LEADSim) else algo.topology
-        dropped, gap = faults_mod.link_metrics(
-            fm, topo, torch.arange(0, iters, record_every))
+        gmode = (algo.engine_gossip if isinstance(algo, LEADSim)
+                 else getattr(algo, "gossip", "dense"))
+        tau = int(getattr(topo, "comm_interval", 1))
+        if gmode == "hier" and int(getattr(topo, "node_size", 1)) > 1:
+            topo = topo.inter
+        ks = torch.arange(0, iters, record_every)
+        dropped, gap = faults_mod.link_metrics(fm, topo, ks)
+        if tau > 1:
+            comm = ks % tau == 0
+            dropped, gap = dropped * comm, gap * comm
         faults = dict(dropped_links=dropped.numpy().astype(np.float64),
                       realized_gap=gap.numpy().astype(np.float64),
                       staleness_mean=rows[5][sel], staleness_max=rows[6][sel])

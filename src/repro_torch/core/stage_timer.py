@@ -5,7 +5,11 @@ The step's own code marks the end of each of its stages with
 the metric writes ("metrics"); the flat LEAD engine after the dither plane
 ("dither"), the fused diff-encode K1 ("diff_encode"), the fused update K3
 ("update") and the compression error ("comp_err"); the flat engines' wire
-after the receiver decode K2 ("decode") and the mix ("mix").
+after the receiver decode K2 ("decode") and the mix ("mix"); on a
+TopologyBank the reference mix with the step's round graph
+("round_mix"), on the hier wire the intra-node projection
+("intra_project"), and on an interval's skipped step the local step
+("local").
 
 With no timer active a mark costs one global read.  Inside
 ``with StageTimer(device) as t:`` every mark records a CUDA event on the

@@ -24,26 +24,47 @@ cached properties:
     beta    = lambda_max(I - W)
     kappa_g = lambda_max(I - W) / lambda_min^+(I - W)
 
+Time-varying gossip: a Topology is a callable of the iteration counter,
+``topo(k)`` the graph of step k (itself when static);
+``topo.with_schedule(fn, period=P)`` attaches a hook ``fn(k) -> Topology``.
+The engines do not call the hook per step: :func:`materialize` turns a
+periodic schedule into a :class:`TopologyBank`, the P round graphs stacked
+in one shared layout (``Ws (P, n, n)``, ``neighbors (P, n, max_deg)``,
+``weights (P, n, max_deg + 1)``), and the engines copy its tables to the
+device once and pick round ``k % P`` each step.  A schedule without a
+period raises there.  Round graphs must be doubly stochastic but need not
+be symmetric: ``exponential_onepeer`` builds directed degree-1 rounds,
+``random_matching`` symmetric matchings drawn from the fault layer's
+counter hash (core/faults.py), so both packages draw the same rounds.
+
+Two-level gossip: :func:`hierarchical` builds a composite Topology,
+``W = kron(W_inter, J_s / s)``: blocks of ``node_size`` consecutive agents
+average exactly (no wire), only node means travel the ``inter`` graph.
+``topo.with_interval(tau)`` sets the communication interval: the engines
+gossip only at ``k % tau == 0`` and take a local step (zero wire bits)
+otherwise.  Both knobs pass through :func:`materialize` unchanged.
+
 The module-level ``spectral_gap``, ``beta``, ``lambda_min_plus``,
 ``kappa_g``, ``check_mixing`` and ``check_doubly_stochastic`` take a
 Topology or a raw matrix (a raw matrix is not validated first).
-
-Not ported yet (ROADMAP "Modules still to port", robustness and topology
-layers): time-varying schedules and ``TopologyBank``, ``hierarchical``
-graphs and the communication interval.  They raise NotImplementedError.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 _EDGE_TOL = 1e-12           # |W_ij| above this is a graph edge
-_LATER = ("not ported yet: time-varying banks, hierarchical graphs and "
-          "communication intervals come with the robustness and topology "
-          "layers (ROADMAP.md, 'Modules still to port')")
+
+
+def _check_interval(tau) -> int:
+    tau = int(tau)
+    if tau < 1:
+        raise ValueError(f"comm_interval must be >= 1, got {tau}")
+    return tau
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -59,6 +80,9 @@ class Topology:
     W: np.ndarray                        # (n, n) float64 mixing matrix
     neighbors: np.ndarray                # (n, deg_max) int32, self-padded
     weights: np.ndarray                  # (n, deg_max + 1) float64, 0-padded
+    schedule: Optional[Callable[[int], "Topology"]] = None
+    schedule_period: Optional[int] = None   # P: schedule repeats mod P
+    comm_interval: int = 1               # tau: gossip fires at k % tau == 0
 
     @property
     def n(self) -> int:
@@ -79,11 +103,28 @@ class Topology:
     def __repr__(self) -> str:
         return f"{self.name}(n={self.n}, deg_max={self.deg_max})"
 
-    def with_schedule(self, fn, period=None):
-        raise NotImplementedError(_LATER)
+    # -- time-varying hook --------------------------------------------------
+    def __call__(self, k: int) -> "Topology":
+        """The graph at iteration k: ``schedule(k)`` when a hook is
+        attached, else this (static) topology."""
+        return self if self.schedule is None else self.schedule(int(k))
 
-    def with_interval(self, tau: int):
-        raise NotImplementedError(_LATER)
+    def with_schedule(self, fn: Callable[[int], "Topology"],
+                      period: Optional[int] = None) -> "Topology":
+        """A copy whose ``topo(k)`` resolves through ``fn``, which returns
+        Topologies of the same n.  ``period=P`` declares the schedule
+        periodic (``fn(k) == fn(k mod P)``), which lets :func:`materialize`
+        turn it into a :class:`TopologyBank`; the engines reject a
+        periodless schedule."""
+        if period is not None and period < 1:
+            raise ValueError(f"schedule period must be >= 1, got {period}")
+        return dataclasses.replace(self, schedule=fn, schedule_period=period)
+
+    def with_interval(self, tau: int) -> "Topology":
+        """A copy with communication interval ``tau``: the engines run the
+        encode and gossip stages only at ``k % tau == 0`` and a local step
+        (zero wire bits) otherwise; ``tau=1`` gossips every step."""
+        return dataclasses.replace(self, comm_interval=_check_interval(tau))
 
     # -- spectral quantities (Theorem 1 / Corollary 1) ----------------------
     @functools.cached_property
@@ -120,6 +161,20 @@ class Topology:
         edge tolerance, off the diagonal).  The fault layer
         (core/faults.py) counts dropped links against this set."""
         return (self.W > _EDGE_TOL) & ~np.eye(self.n, dtype=bool)
+
+    @functools.cached_property
+    def uniform_weights(self) -> Optional[Tuple[float, float]]:
+        """(w_self, w_neighbor) when every agent has the same self weight
+        and every edge the same weight (ring, torus, fully_connected);
+        None for weight-heterogeneous graphs (metropolis on an irregular
+        adjacency).  :func:`bank` keeps one style per bank."""
+        diag = np.diag(self.W)
+        off = self.W[(self.W > _EDGE_TOL) & ~np.eye(self.n, dtype=bool)]
+        if len(off) == 0:
+            return (1.0, 0.0)
+        if np.allclose(diag, diag[0]) and np.allclose(off, off[0]):
+            return (float(diag[0]), float(off[0]))
+        return None
 
     # -- point-to-point view --------------------------------------------------
     @functools.cached_property
@@ -199,17 +254,259 @@ def as_topology(obj: Any, name: str = "matrix") -> Topology:
     return from_matrix(obj, name=name)
 
 
-def materialize(obj: Any, name: str = "matrix") -> Topology:
-    """The compiled form of a communication graph.  Only static graphs are
-    ported: a Topology or a matrix goes through :func:`as_topology`; a
-    sequence of round graphs (a bank) raises."""
+# -- round-indexed topology banks (time-varying gossip) ----------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TopologyBank:
+    """A periodic sequence of P round graphs in stacked, shared-layout host
+    arrays: the form the engines run time-varying gossip from.
+
+    The engines copy the stacked tables to their device once and mix step
+    k with round ``k % P``; core/faults.py composes its link masks with the
+    step's round graph.  All rounds have the same n, and every round's
+    padded neighbor table is re-padded to the bank-wide ``max_deg`` (self
+    index, weight 0.0: the same convention as a single Topology's table).
+    Round graphs must be doubly stochastic but need not be symmetric.
+
+    Build one with :func:`bank` (a list of Topologies or matrices), a
+    graph family (:func:`exponential_onepeer`, :func:`random_matching`),
+    or by materializing a periodic schedule (:func:`materialize`).
+    """
+    name: str
+    rounds: Tuple[Topology, ...]         # the P per-round graphs
+    Ws: np.ndarray                       # (P, n, n) float64
+    neighbors: np.ndarray                # (P, n, max_deg) int32, self-padded
+    weights: np.ndarray                  # (P, n, max_deg + 1) f64, 0-padded
+    comm_interval: int = 1               # tau: gossip fires at k % tau == 0
+
+    @property
+    def period(self) -> int:
+        return len(self.rounds)
+
+    @property
+    def n(self) -> int:
+        return self.Ws.shape[1]
+
+    @property
+    def deg_max(self) -> int:
+        """The shared bank-wide table width."""
+        return self.neighbors.shape[2]
+
+    @property
+    def W(self) -> np.ndarray:
+        """The round-0 dense matrix, the init-time mixing convention: at a
+        consensus start every round's W x equals x, so engines that mix
+        once during init (LEAD's H_w, DCD's xhat_w) use round 0."""
+        return self.Ws[0]
+
+    @functools.cached_property
+    def edge_masks(self) -> np.ndarray:
+        """(P, n, n) bool: each round's directed real edges (the fault
+        layer's dropped-link count, per step's graph)."""
+        return np.stack([
+            (W > _EDGE_TOL) & ~np.eye(self.n, dtype=bool) for W in self.Ws])
+
+    @functools.cached_property
+    def period_W(self) -> np.ndarray:
+        """W_{P-1} ... W_1 W_0, the map one full period applies.  For
+        one-peer exponential graphs at n = 2^m it is exactly the uniform
+        1/n averaging matrix."""
+        P = np.eye(self.n)
+        for W in self.Ws:
+            P = W @ P
+        return P
+
+    @property
+    def beta(self) -> float:
+        """lambda_max(I - period_W), of the period product's symmetric
+        part."""
+        return _topo_of(0.5 * (self.period_W + self.period_W.T)).beta
+
+    @property
+    def kappa_g(self) -> float:
+        return _topo_of(0.5 * (self.period_W + self.period_W.T)).kappa_g
+
+    @functools.cached_property
+    def spectral_gap(self) -> float:
+        """1 - sigma_2(period_W): the contraction of one full period
+        (singular values, so directed round products are handled)."""
+        if self.n <= 1:
+            return 1.0
+        sv = np.linalg.svd(self.period_W, compute_uv=False)
+        return float(1.0 - sv[1])
+
+    def __call__(self, k: int) -> Topology:
+        """The round graph at iteration k: ``rounds[k % P]``."""
+        return self.rounds[int(k) % self.period]
+
+    def with_interval(self, tau: int) -> "TopologyBank":
+        """A copy with communication interval ``tau`` (see
+        :meth:`Topology.with_interval`).  The engines reject tau > 1 on a
+        bank: skipping rounds changes which round graph fires at which
+        step, and the bank recomputations (CHOCO's and DCD's xhat_w,
+        LEAD's hw) assume every round fires."""
+        return dataclasses.replace(self, comm_interval=_check_interval(tau))
+
+    def __repr__(self) -> str:
+        degs = [int(np.max((r.weights[:, 1:] > _EDGE_TOL).sum(axis=1)))
+                for r in self.rounds]
+        deg_s = str(degs[0]) if len(set(degs)) == 1 else f"<={max(degs)}"
+        return (f"{self.name}(n={self.n}, period={self.period}, "
+                f"deg={deg_s})")
+
+    def validate(self, atol: float = 1e-8) -> "TopologyBank":
+        """Every round doubly stochastic and every stacked table
+        reconstructs its stacked W; returns self."""
+        for r, W in enumerate(self.Ws):
+            check_doubly_stochastic(W, atol=atol)
+            recon = np.zeros_like(W)
+            recon[np.arange(self.n), np.arange(self.n)] = \
+                self.weights[r, :, 0]
+            for j in range(self.deg_max):
+                recon[np.arange(self.n), self.neighbors[r, :, j]] += \
+                    self.weights[r, :, 1 + j]
+            if not np.allclose(recon, W, atol=atol):
+                raise ValueError(
+                    f"bank round {r}: neighbor table does not "
+                    f"reconstruct W")
+        return self
+
+
+def bank(topos, name: str = "bank") -> TopologyBank:
+    """Stack a sequence of round graphs (Topologies or raw matrices) into a
+    :class:`TopologyBank` with the shared (n, max_deg) layout.
+
+    A round that disagrees with round 0 raises a ValueError naming it: a
+    different agent count n, or a different weight style (uniform against
+    non-uniform).  Tables narrower than the bank-wide max_deg are
+    re-padded (self index, weight 0.0)."""
+    topos = [t if isinstance(t, Topology)
+             else _build(f"{name}[{r}]", np.asarray(t, np.float64))
+             for r, t in enumerate(topos)]
+    if not topos:
+        raise ValueError("bank needs at least one round graph")
+    n0 = topos[0].n
+    style0 = topos[0].uniform_weights is not None
+    for r, t in enumerate(topos):
+        if t.n != n0:
+            raise ValueError(
+                f"bank round {r} ({t.name!r}) has n={t.n} agents but "
+                f"round 0 ({topos[0].name!r}) has n={n0}; every round of "
+                f"a TopologyBank must share the same agent count")
+        if (t.uniform_weights is not None) != style0:
+            kind = ("uniform" if t.uniform_weights is not None
+                    else "non-uniform")
+            kind0 = "uniform" if style0 else "non-uniform"
+            raise ValueError(
+                f"bank round {r} ({t.name!r}) has {kind} weights but "
+                f"round 0 ({topos[0].name!r}) is {kind0}; a TopologyBank "
+                f"must not mix uniform and non-uniform weight styles "
+                f"(re-weight the odd round out, e.g. via metropolis)")
+    deg = max(t.deg_max for t in topos)
+    nbr = np.empty((len(topos), n0, deg), np.int32)
+    wts = np.zeros((len(topos), n0, deg + 1))
+    for r, t in enumerate(topos):
+        d = t.deg_max
+        nbr[r, :, :d] = t.neighbors
+        nbr[r, :, d:] = np.arange(n0, dtype=np.int32)[:, None]  # self pad
+        wts[r, :, :d + 1] = t.weights
+    Ws = np.stack([t.W for t in topos])
+    return TopologyBank(name=name, rounds=tuple(topos), Ws=Ws,
+                        neighbors=nbr, weights=wts)
+
+
+def materialize(obj: Any, name: str = "matrix"):
+    """The form the engines run: Topology | TopologyBank | matrix |
+    sequence of round graphs, with periodic schedules expanded.
+
+    * a TopologyBank passes through;
+    * a list or tuple of graphs becomes ``bank(...)``;
+    * a scheduled Topology with ``schedule_period=P`` becomes the bank of
+      ``fn(0), ..., fn(P-1)``, keeping its communication interval;
+    * a scheduled Topology without a period raises ValueError (it would
+      freeze at ``topo(0)``);
+    * everything else goes through :func:`as_topology`.
+    """
+    if isinstance(obj, TopologyBank):
+        return obj
     if isinstance(obj, (list, tuple)):
-        raise NotImplementedError(_LATER)
-    return as_topology(obj, name=name)
+        return bank(obj, name=name)
+    topo = as_topology(obj, name=name)
+    if topo.schedule is None:
+        return topo
+    if topo.schedule_period is None:
+        raise ValueError(
+            f"topology {topo.name!r} carries a live (periodless) schedule "
+            "callable, which the engines cannot run: it would freeze the "
+            "graph at topo(0).  Either attach a period "
+            "(topo.with_schedule(fn, period=P)) so it materializes into a "
+            "TopologyBank, or resolve topo(k) yourself and re-run per "
+            "phase.")
+    P = topo.schedule_period
+    b = bank([topo(k) for k in range(P)], name=f"{topo.name}@P{P}")
+    if topo.comm_interval != 1:
+        b = b.with_interval(topo.comm_interval)
+    return b
 
 
-def hierarchical(inter_topo, node_size: int):
-    raise NotImplementedError(_LATER)
+# -- time-varying graph families ---------------------------------------------
+
+def exponential_onepeer(n: int) -> TopologyBank:
+    """One-peer exponential graphs: a period-ceil(log2 n) bank whose round
+    r has each agent i average itself with agent ``(i - 2^r) mod n``::
+
+        W_r[i, i] = 1/2,   W_r[i, (i - 2^r) mod n] = 1/2
+
+    Each round is doubly stochastic and directed with degree 1.  At
+    n = 2^m the P-round product is exactly the uniform 1/n averaging
+    matrix; off powers of two it still contracts."""
+    if n < 1:
+        raise ValueError(f"exponential_onepeer needs n >= 1, got {n}")
+    if n == 1:
+        return bank([_build("exp_onepeer[0]", np.ones((1, 1)))],
+                    name="exp_onepeer1")
+    P = int(np.ceil(np.log2(n)))
+    rounds = []
+    idx = np.arange(n)
+    for r in range(P):
+        W = np.zeros((n, n))
+        W[idx, idx] = 0.5
+        W[idx, (idx - (1 << r)) % n] = 0.5
+        rounds.append(_build(f"exp_onepeer[{r}]", W))
+    return bank(rounds, name=f"exp_onepeer{n}")
+
+
+_SALT_MATCH = 0x7007        # counter-hash domain for random_matching draws
+
+
+def random_matching(n: int, seed: int = 0, rounds: int = 8) -> TopologyBank:
+    """A bank of ``rounds`` random perfect matchings drawn from the counter
+    hash of (seed, round, agent) (core/faults.py), so the rounds are the
+    reference's bit for bit, and ``random_matching(n, seed, r1)`` is a
+    prefix of ``random_matching(n, seed, r2)`` for r1 < r2.
+
+    Round r sorts agents by their hashed key and pairs consecutive ones;
+    each matched pair averages (W[i,i] = W[i,j] = 1/2), an unmatched agent
+    (odd n) keeps self weight 1.  Every round is symmetric doubly
+    stochastic with degree <= 1."""
+    from repro_torch.core.faults import counter_hash
+    if n < 1:
+        raise ValueError(f"random_matching needs n >= 1, got {n}")
+    if rounds < 1:
+        raise ValueError(f"random_matching needs rounds >= 1, got {rounds}")
+    topos = []
+    idx = np.arange(n)
+    for r in range(rounds):
+        keys = counter_hash(seed, r, torch.from_numpy(idx), 0,
+                            _SALT_MATCH).numpy()
+        order = np.argsort(keys, kind="stable")
+        W = np.eye(n)
+        for a in range(0, n - 1, 2):
+            i, j = int(order[a]), int(order[a + 1])
+            W[i, i] = W[j, j] = 0.5
+            W[i, j] = W[j, i] = 0.5
+        topos.append(_build(f"matching_s{seed}[{r}]", W))
+    return bank(topos, name=f"matching{n}_s{seed}")
 
 
 # -- graph families ----------------------------------------------------------
@@ -295,6 +592,79 @@ def metropolis_matrix(adj: np.ndarray) -> np.ndarray:
 def metropolis(adj: np.ndarray) -> Topology:
     """Topology with Metropolis-Hastings weights for an adjacency matrix."""
     return _build("metropolis", metropolis_matrix(adj))
+
+
+# -- two-level (hierarchical) graphs ------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False, repr=False)
+class HierarchicalTopology(Topology):
+    """Two-level graph from :func:`hierarchical`: ``node_size``
+    consecutive agents form one node (exact averaging inside the block, no
+    wire) and the nodes talk over the ``inter`` graph.  The inherited
+    fields describe the composite matrix ``kron(inter.W, J_s / s)``, so it
+    serves any consumer as a plain n-agent Topology; ``gossip="hier"``
+    engines read ``node_size`` and ``inter`` to run the two levels
+    apart."""
+    node_size: int = 1
+    inter: Optional[Topology] = None
+
+
+def hierarchical(inter_topo, node_size: int) -> HierarchicalTopology:
+    """Two-level topology: uniform averaging inside each block of
+    ``node_size`` consecutive agents, ``inter_topo`` between the blocks.
+
+    ``W = kron(W_inter, J_s / s)``: its eigenvalues are those of
+    ``W_inter`` plus 0, so Assumption 1 holds whenever it holds for
+    ``W_inter``.  ``node_size=1`` reproduces ``inter_topo``'s W and table
+    exactly.  The inter graph must be static (a Topology or a raw matrix),
+    not a TopologyBank or a scheduled Topology."""
+    if isinstance(inter_topo, TopologyBank):
+        raise ValueError(
+            "hierarchical() needs a static inter graph, not a TopologyBank "
+            "(time-varying inter-node gossip is not supported)")
+    inter = as_topology(inter_topo, name="inter")
+    if inter.schedule is not None:
+        raise ValueError(
+            "hierarchical() needs a static inter graph, not a scheduled "
+            "Topology: drop the schedule (topo(k)) before nesting")
+    s = int(node_size)
+    if s < 1:
+        raise ValueError(f"node_size must be >= 1, got {s}")
+    W = np.kron(inter.W, np.full((s, s), 1.0 / s))
+    neighbors, weights = _table_from_w(W)
+    return HierarchicalTopology(
+        name=f"hier({inter.name}x{s})", W=W, neighbors=neighbors,
+        weights=weights, comm_interval=inter.comm_interval,
+        node_size=s, inter=inter)
+
+
+def _near_square(n: int) -> Tuple[int, int]:
+    """rows x cols = n with rows the largest divisor <= sqrt(n)."""
+    r = int(np.sqrt(n))
+    while n % r:
+        r -= 1
+    return r, n // r
+
+
+TOPOLOGIES = {
+    "ring": ring,
+    "chain": chain,
+    "full": fully_connected,
+    "star": star,
+    "torus": lambda n: torus_2d(*_near_square(n)),
+    "erdos_renyi": erdos_renyi,
+    "exp-onepeer": exponential_onepeer,        # -> TopologyBank, period log2 n
+    "random-matching": random_matching,        # -> TopologyBank, period 8
+}
+
+
+def make_mixing(name: str, n: int):
+    """Topology or TopologyBank by family name (time-varying families
+    return banks)."""
+    if name not in TOPOLOGIES:
+        raise KeyError(f"unknown topology {name!r}; options: "
+                       f"{sorted(TOPOLOGIES)}")
+    return TOPOLOGIES[name](n)
 
 
 # -- spectral quantities on raw matrices or Topologies -----------------------

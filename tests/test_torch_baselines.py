@@ -101,7 +101,7 @@ def _inject_reference_draws(eng, comp_j, key):
         draws = {"idx": torch.from_numpy(idx).to(torch.int64)}
     else:
         return                 # p=inf: the shared hash; exact TopK: none
-    object.__setattr__(eng, "_draws", lambda comp, seed, k: draws)
+    object.__setattr__(eng, "_draws", lambda comp, seed, k, rows: draws)
 
 
 def _state_close(got, want, what):
@@ -196,11 +196,27 @@ def test_registry_rejects_what_it_cannot_run():
         engine_for(topo, RandK(), 64, algorithm="nids", device=CPU)
     with pytest.raises(NotImplementedError):
         engine_for(topo, object(), 64, algorithm="choco", device=CPU)
+    # CHOCO's local_stage is ported: the reference's frozen-hat step
     eng = engine_for(topo, QuantizePNorm(), 64, algorithm="choco", device=CPU)
-    x = torch.zeros(8, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.local_stage(eng.init(x, x), eng.blockify(x), eng.hypers_at(
-            torch.zeros((), dtype=torch.int64)))
+    ref = jax_engine_for(jax_topology.ring(8), JaxQuantizePNorm(), 64,
+                         algorithm="choco")
+    rng = np.random.default_rng(11)
+    x, xhat, g = (rng.standard_normal((8, 64)).astype(np.float32)
+                  for _ in range(3))
+    st_j = ref.init(jnp.asarray(x), jnp.asarray(g), jax.random.PRNGKey(0))
+    st_j = st_j._replace(xhat=ref.blockify(jnp.asarray(xhat)),
+                         xhat_w=ref._mix(ref.blockify(jnp.asarray(xhat))))
+    st_t = state_from_numpy(type(eng.init(torch.from_numpy(x),
+                                          torch.from_numpy(g))), st_j,
+                            device=CPU)
+    new_t, err_t = eng.local_stage(st_t, eng.blockify(torch.from_numpy(g)),
+                                   eng.hypers_at(st_t.k))
+    new_j, err_j = ref.local_stage(st_j, ref.blockify(jnp.asarray(g)),
+                                   ref.hypers_at(st_j.k))
+    assert float(err_t) == float(err_j) == 0.0
+    _state_close(new_t, new_j, "choco local_stage")
+    assert torch.equal(new_t.xhat, st_t.xhat)
+    assert torch.equal(new_t.xhat_w, st_t.xhat_w)
 
 
 @pytest.mark.parametrize("name", COMPRESSED + EXACT)

@@ -452,7 +452,8 @@ class _Quadratic:
         return 0.5 * torch.mean(torch.sum((X - self.T) ** 2, -1))
 
 
-SYNC_CASES = ("lead_dense", "lead_neighbor", "choco_stale", "lead_noisy")
+SYNC_CASES = ("lead_dense", "lead_neighbor", "choco_stale", "lead_noisy",
+              "lead_bank", "lead_interval")
 
 
 @pytest.mark.cuda
@@ -463,7 +464,10 @@ def test_faulted_run_makes_no_per_step_sync(cuda_device, case):
     synchronising call; a run makes a few, the copies of the graph's
     tables to the card when its engine is built and the one copy of the
     trace): the fault masks are hashed on the card, and the realized gap's
-    SVD runs on the host after the loop.  Likewise the noisy oracle."""
+    SVD runs on the host after the loop.  Likewise the noisy oracle, and a
+    faulted run over a bank (exponential_onepeer(8)) and over an interval
+    (ring(8).with_interval(4)): run() hands each step its host counter, so
+    picking the round and gating the wire read nothing off the card."""
     prob = _Quadratic(8, 4096, cuda_device)
     q2 = QuantizePNorm(bits=2)
     link = faults.FaultModel(seed=0, link_drop=0.1)
@@ -474,6 +478,12 @@ def test_faulted_run_makes_no_per_step_sync(cuda_device, case):
                           faults=faults.FaultModel(
                               seed=6, agent_drop=0.2, dropout_window=5,
                               policy="stale"), device=cuda_device)
+    elif case in ("lead_bank", "lead_interval"):
+        topo = (topology.exponential_onepeer(8) if case == "lead_bank"
+                else topology.ring(8).with_interval(4))
+        algo = LEADSim(topology=topo, compressor=q2, eta=0.5, engine="flat",
+                       device=cuda_device, engine_gossip="neighbor",
+                       faults=link)
     else:
         algo = LEADSim(topology=topology.ring(8), compressor=q2, eta=0.5,
                        engine="flat", device=cuda_device,
@@ -499,3 +509,78 @@ def test_faulted_run_makes_no_per_step_sync(cuda_device, case):
     at5 = syncs(5)
     for iters in (10, 20):
         assert syncs(iters) == at5, iters
+
+
+NEW_PATH_TOPOS = {"bank": (lambda: topology.exponential_onepeer(8),
+                           "neighbor"),
+                  "hier": (lambda: topology.hierarchical(topology.ring(4), 2),
+                           "hier")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(NEW_PATH_TOPOS))
+def test_bank_and_hier_lead_steps_equal_the_cpu(cuda_device, path):
+    """A 2-bit LEAD step on exponential_onepeer(8) and on the hier wire of
+    hierarchical(ring(4), 2): from the same state, with the same gradient
+    and seed, five steps each agree with the CPU's (payload codes
+    identical, states within 1e-5, as the block-256 engine test holds)."""
+    build, gossip = NEW_PATH_TOPOS[path]
+    engines = {dev: engine_for(build(), QuantizePNorm(bits=2), 1000,
+                               gossip=gossip, eta=0.05, device=dev)
+               for dev in (cuda_device, "cpu")}
+    rng = np.random.default_rng(6)
+    x0, g0 = (torch.from_numpy(rng.standard_normal((8, 1000))
+                               .astype(np.float32)) for _ in range(2))
+    st = engines["cpu"].init(x0, g0)
+    for step in range(5):
+        g = torch.from_numpy(rng.standard_normal((8, 1000)).astype(np.float32))
+        card_st = state_from_numpy(type(st), {f: v.numpy() for f, v in
+                                              st._asdict().items()},
+                                   device=cuda_device)
+        hy = {dev: eng.hypers_at(s.k) for (dev, eng), s in
+              zip(engines.items(), (card_st, st))}
+        codes = [eng.encode_stage(s, eng.blockify(gg), 21 + step,
+                                  hy[dev])[0]["code"].cpu()
+                 for (dev, eng), s, gg in zip(engines.items(), (card_st, st),
+                                              (g.to(cuda_device), g))]
+        assert torch.equal(codes[0], codes[1]), (path, step)
+        want = engines["cpu"].step(st, g, 21 + step, step=step)
+        got = engines[cuda_device].step(card_st, g.to(cuda_device), 21 + step,
+                                        step=step)
+        for f in want._fields:
+            np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
+                                       getattr(want, f).numpy(), rtol=1e-5,
+                                       atol=1e-5, err_msg=f"{path} {f}")
+        st = want
+
+
+@pytest.mark.cuda
+def test_new_paths_launch_their_kernels(cuda_device):
+    """run() launches, per communicating step: K1, K2 and K3 for flat LEAD
+    on a bank; K4 and K2 for CHOCO on the 2-bit wire over a bank; K4, K2
+    and K3 for LEAD on the hier wire, and K1 never; on ring(8).
+    with_interval(4) LEAD's kernels on 5 of 20 steps and none on the
+    local ones."""
+    prob = _Quadratic(8, 1024, cuda_device)
+    q2 = QuantizePNorm(bits=2)
+    lead = LEAD_KERNELS
+    wire = ("quantize_encode", "quantize_decode")
+    hier = ("quantize_encode", "quantize_decode", "lead_update")
+    cases = [
+        (LEADSim(topology=topology.exponential_onepeer(8), compressor=q2,
+                 eta=0.5, engine="flat", device=cuda_device), lead, 20),
+        (engine_for(topology.random_matching(8, seed=0), q2, 1024,
+                    algorithm="choco", eta=0.01, gamma=0.8,
+                    device=cuda_device), wire, 20),
+        (LEADSim(topology=topology.hierarchical(topology.ring(4), 2),
+                 compressor=q2, eta=0.5, engine="flat", engine_gossip="hier",
+                 device=cuda_device), hier, 20),
+        (LEADSim(topology=topology.ring(8).with_interval(4), compressor=q2,
+                 eta=0.5, engine="flat", device=cuda_device), lead, 5),
+    ]
+    for algo, kernels, count in cases:
+        cuda_lib.reset_launch_counts()
+        tr = run(algo, prob, prob.x_star, iters=20)
+        assert cuda_lib.launch_counts() == {
+            k: count if k in kernels else 0 for k in cuda_lib.LAUNCHES}
+        assert np.isfinite(tr.dist).all()

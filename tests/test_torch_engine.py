@@ -142,13 +142,24 @@ def test_topology_matches_reference(name):
 
 
 def test_topology_unported_forms_raise():
+    """The forms this test once found raising now build and validate, as
+    the reference's do: with_interval and with_schedule set their fields,
+    hierarchical builds the composite graph, materialize stacks a list of
+    rounds into a bank; a bad matrix still raises ValueError and
+    as_topology still wraps a raw matrix."""
     ring = topology.ring(8)
-    for call in (lambda: ring.with_interval(2),
-                 lambda: ring.with_schedule(lambda k: ring, period=2),
-                 lambda: topology.hierarchical(ring, 2),
-                 lambda: topology.materialize([ring, ring])):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    jring = jax_topology.ring(8)
+    assert ring.with_interval(2).comm_interval == 2
+    sched = ring.with_schedule(lambda k: ring, period=2)
+    assert sched.schedule_period == 2 and sched(5) is ring
+    hier = topology.hierarchical(ring, 2).validate()
+    np.testing.assert_array_equal(hier.W,
+                                  jax_topology.hierarchical(jring, 2).W)
+    stacked = topology.materialize([ring, ring]).validate()
+    want = jax_topology.materialize([jring, jring])
+    assert stacked.period == want.period == 2
+    for f in ("Ws", "neighbors", "weights"):
+        np.testing.assert_array_equal(getattr(stacked, f), getattr(want, f))
     with pytest.raises(ValueError):
         topology.from_matrix(np.array([[0.9, 0.1], [0.3, 0.7]]))
     assert topology.as_topology(ring.W).W.tolist() == ring.W.tolist()
@@ -251,8 +262,12 @@ def test_unported_paths_raise():
     topo = topology.ring(8)
     with pytest.raises(NotImplementedError, match="threefry"):
         engine_for(topo, None, 64, dither="match", device=CPU)
-    with pytest.raises(NotImplementedError):
+    # gossip="hier" is ported: on a flat graph it raises, as the
+    # reference's assertion does (ValueError, the port's convention)
+    with pytest.raises(ValueError, match="hierarchical"):
         engine_for(topo, None, 64, gossip="hier", device=CPU)
+    with pytest.raises(AssertionError):
+        jax_engine_for(jax_topology.ring(8), None, 64, gossip="hier")
     # fault injection is ported: a non-FaultModel is rejected, as the
     # reference asserts
     with pytest.raises(TypeError, match="FaultModel"):

@@ -290,7 +290,8 @@ def test_step_metrics_match_reference(topo):
 def test_fault_model_checks_and_state():
     """The model's argument checks, the fault state's shapes, FaultState
     carried from numpy, the rejection of a non-FaultModel and of faults on
-    the tree engine, and time-varying banks pointing at ROADMAP."""
+    the tree engine, and step_metrics on a real bank (round k % P of
+    random_matching(8)) equal to the reference's."""
     for bad in (dict(policy="drop"), dict(link_drop=1.5),
                 dict(agent_drop=-0.1), dict(dropout_window=0)):
         with pytest.raises(ValueError):
@@ -313,11 +314,17 @@ def test_fault_model_checks_and_state():
         LEADSim(topology=topology.ring(8), compressor=QuantizePNorm(),
                 faults=faults.FaultModel(link_drop=0.1))
 
-    class Bank:
-        period, n = 2, N
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        faults.step_metrics(faults.FaultModel(), Bank(), 0,
-                            torch.zeros(N, dtype=torch.int32))
+    fm, jm = (mod.FaultModel(seed=2, link_drop=0.3, agent_drop=0.1)
+              for mod in (faults, jax_faults))
+    bank, jbank = topology.random_matching(N), jax_topology.random_matching(N)
+    age = np.arange(N, dtype=np.int32) % 3
+    for k in range(2 * bank.period):
+        got = faults.step_metrics(fm, bank, k, torch.from_numpy(age))
+        want = jax_faults.step_metrics(jm, jbank, k, jnp.asarray(age))
+        assert float(got[0]) == float(want[0]), k
+        assert abs(float(got[1]) - float(want[1])) <= 1e-6, k
+        assert float(got[2]) == float(want[2])
+        assert float(got[3]) == float(want[3])
 
 
 # -- the engines' faulted wire: per-step parity ------------------------------------

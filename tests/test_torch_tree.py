@@ -492,7 +492,7 @@ def test_tree_lead_construction_and_rebinding(readme_problem):
         LEADSim(compressor=Identity(), engine="tree")
     with pytest.raises(ValueError):
         LEADSim(gossip=dg, engine="tree")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="engine='flat'"):
         LEADSim(topology=[ring, ring], compressor=Identity(), engine="tree",
                 device=CPU)._gossip
     q2 = QuantizePNorm(bits=2)
