@@ -3,7 +3,7 @@
 
     PYTHONPATH=src python3 chip_smoke.py
 
-Builds the kernels from src/repro_torch/csrc, then runs fifteen phases,
+Builds the kernels from src/repro_torch/csrc, then runs sixteen phases,
 each printing one JSON line (the at-scale phases one per run); a failed
 check exits nonzero.
 
@@ -109,6 +109,16 @@ check exits nonzero.
                  traces held by the CPU tests' bound, and the CPU run
                  predicts the factors by which the run's dist and
                  consensus move in 20 steps (held within 2x)
+  multiwire_at_scale
+                 CEDAS on random_matching(8) and C-GT, the two-wire engine,
+                 on exponential_onepeer(8) and on ring(8) under 10% link
+                 drops, at the real size with 2-bit p=inf on neighbor
+                 gossip (one warm-up step, 20 steps): K4 and K2 once per
+                 step for CEDAS and twice for C-GT, K1 and K3 never; C-GT's
+                 bits exactly twice the same graph's single-wire run's; its
+                 tracker sum (sum s == sum g_prev) held at every step; each
+                 configuration at d = 4,096 on the card against the CPU as
+                 above; each run's ms/step, stage sums and peak memory
 
 The line before the last lists every kernel with its launches on the main
 path, its error against the plain version and its times; the last line is
@@ -272,6 +282,24 @@ NEW_PATHS = {
 NEW_STAGES = {"bank_at_scale": {"round_mix": "round_mix"},
               "hier_at_scale": {"intra_project": "intra_project"},
               "interval_at_scale": {"local": "local_step"}}
+# multiwire_at_scale: CEDAS and C-GT on the 2-bit wire over neighbor
+# gossip, lead_at_scale's objective; run: (algorithm, topology, fault
+# model or None, hypers, K4 and K2 launches per step).  Hypers chosen on
+# the CPU at d = 2^14, where each run's dist falls in 20 steps (C-GT under
+# drops stalls, in the reference as in the port: dist 1.8e3 -> 6.3e2)
+MULTIWIRE_RUNS = {
+    "cedas_matching": ("cedas", lambda t: t.random_matching(8, seed=0), None,
+                       dict(eta=0.5, gamma=0.5, alpha=0.5), 1),
+    "cgt_onepeer": ("cgt", lambda t: t.exponential_onepeer(8), None,
+                    dict(eta=0.1, gamma=0.5, alpha=0.5), 2),
+    "cgt_ring_faulted": ("cgt", lambda t: t.ring(8), LINK_DROP,
+                         dict(eta=0.1, gamma=0.5, alpha=0.5), 2),
+}
+MULTIWIRE_STAGES = {"gradient": "gradient", "message": "message",
+                    "dither": "dither", "encode": "K4_encode",
+                    "decode": "K2_decode", "update": "update",
+                    "comp_err": "comp_err", "metrics": "metrics"}
+TRACKER_RTOL = 1e-4         # |sum s - sum g_prev| <= 1e-4 (1 + max |g_prev|)
 SMALL_D, SMALL_ITERS = 4096, 50   # each new run's configuration held to the
                                   # CPU's, which also predicts its factors
 PREDICT_TOL = 2.0           # at-scale factor within 2x of the predicted
@@ -1579,6 +1607,185 @@ def phase_new_paths(dev, phase, lead_trace):
     return launches
 
 
+def stage_sums(run_fn, dev, names, what):
+    """Device ms per step of each stage of run_fn() under
+    core/stage_timer.py, summed over the stage's marks within a step (a
+    multi-wire step marks dither, encode, decode and mix once per wire)
+    and averaged over the steps after the first; `names` maps each mark to
+    what it runs and must cover every stage.  Returns (ms per stage, marks
+    per step of each stage, device ms per step)."""
+    from repro_torch.core.stage_timer import StageTimer
+
+    with StageTimer(dev) as timer:
+        run_fn()
+    stages = timer.stages()
+    first = [name for name, _ in stages].index("metrics") + 1
+    ms, marks = {}, {}
+    for name, t in stages[first:]:
+        key = names.get(name, name)
+        ms[key] = ms.get(key, 0.0) + t
+        marks[key] = marks.get(key, 0) + 1
+    check(set(ms) == set(names.values()), f"{what}: stages {sorted(ms)}")
+    steps = marks[names["metrics"]]
+    return ({k: v / steps for k, v in ms.items()},
+            {k: v / steps for k, v in marks.items()},
+            sum(ms.values()) / steps)
+
+
+class TrackerProbe:
+    """A flat engine whose steps also record C-GT's tracker gap
+    max |sum_i s_i - sum_i g_prev_i| / (1 + max |g_prev|) after each step,
+    in a device tensor (no host read inside the run); every other
+    attribute is the engine's, so run() drives it as it drives the
+    engine."""
+
+    def __init__(self, engine):
+        self.engine, self.gaps = engine, []
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def _record(self, st):
+        gap = (st.s.sum(0, dtype=torch.float64)
+               - st.g_prev.sum(0, dtype=torch.float64)).abs().max()
+        self.gaps.append(gap / (1.0 + st.g_prev.abs().max().double()))
+
+    def step_with_wire(self, st, g, seed, step=None):
+        out = self.engine.step_with_wire(st, g, seed, step)
+        self._record(out[0])
+        return out
+
+    def step_with_wire_faulted(self, st, fs, g, seed, step=None):
+        out = self.engine.step_with_wire_faulted(st, fs, g, seed, step)
+        self._record(out[0])
+        return out
+
+
+def phase_multiwire_at_scale(dev, lead_trace, smi):
+    """CEDAS and C-GT at the real size (lead_at_scale's objective, one
+    warm-up step, 20 counted steps, 2-bit p=inf in blocks of 512, neighbor
+    gossip): each MULTIWIRE_RUNS entry with its launches pinned (K4 and K2
+    once per step and wire, K1 and K3 never), its ms/step, stage sums and
+    peak memory; C-GT's bits exactly twice a single-wire run's on the same
+    graph (CEDAS's: lead_at_scale's); C-GT's tracker sum held at every
+    counted step (a second run of the same seeds through TrackerProbe);
+    the fault fields the CPU's; the configuration at d = SMALL_D on the
+    card held to the CPU's trace, which also predicts the dist and
+    consensus factors over 20 steps (held within 2x).  `smi` (the card's
+    name and power limit) goes on each run's line."""
+    from repro_torch.core import faults, topology
+    from repro_torch.core.compression import QuantizePNorm
+    from repro_torch.core.engines import engine_for
+    from repro_torch.core.simulator import run
+    from repro_torch.kernels import cuda_lib
+
+    n, d, iters = 8, D_SCALE, 20
+    prob = Quadratic(torch.Generator(dev).manual_seed(0), n, d, dev)
+    T = torch.randn((n, SMALL_D), generator=torch.Generator().manual_seed(0))
+    small = {device: Quadratic(None, n, SMALL_D, device, T)
+             for device in (dev, "cpu")}
+    q2 = QuantizePNorm(bits=2)
+    wire = ("quantize_encode", "quantize_decode")
+    launches = {}
+    for name, (alg_name, build, model, hyper, wires) in \
+            MULTIWIRE_RUNS.items():
+        topo = build(topology)
+        fm = None if model is None else faults.FaultModel(**model)
+
+        def make(device, dim, algorithm=alg_name):
+            return engine_for(topo, q2, dim, algorithm=algorithm,
+                              gossip="neighbor", faults=fm, device=device,
+                              **hyper)
+
+        eng = make(dev, d)
+        what = f"multiwire_at_scale {name}"
+        run(eng, prob, prob.x_star, iters=1)            # warm-up step
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = run(eng, prob, prob.x_star, iters=iters)   # ends in one .cpu()
+        wall = time.perf_counter() - t0
+        launches[name] = cuda_lib.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        expect_launches(launches[name], dict.fromkeys(wire, wires * iters),
+                        what)
+        check(all(np.isfinite(a).all() for a in tr), f"{what}: non-finite")
+        out = {}
+        if alg_name == "cgt":
+            # the same graph's single-wire run: CEDAS, two steps
+            single = run(make(dev, d, "cedas"), prob, prob.x_star, iters=2)
+            check(tr.bits_per_agent[1] == 2 * single.bits_per_agent[1],
+                  f"{what}: bits {tr.bits_per_agent[1]} after 2 steps, the "
+                  f"single wire's {single.bits_per_agent[1]}")
+            probe = TrackerProbe(eng)
+            run(probe, prob, prob.x_star, iters=iters)
+            gaps = torch.stack(probe.gaps).cpu().numpy()
+            check(len(gaps) == iters and gaps.max() <= TRACKER_RTOL,
+                  f"{what}: tracker gap {gaps}")
+            out.update(tracker_gap_max=float(gaps.max()),
+                       bits_over_single_wire=(tr.bits_per_agent[1]
+                                              / single.bits_per_agent[1]))
+            del probe
+        else:
+            check(np.array_equal(tr.bits_per_agent,
+                                 lead_trace.bits_per_agent),
+                  f"{what}: bits differ from lead_at_scale's single wire")
+        if fm is not None:
+            want = fault_metrics_on_cpu(fm, topo, iters)
+            for f in ("dropped_links", "staleness_mean", "staleness_max"):
+                check(np.array_equal(getattr(tr, f), want[f]),
+                      f"{what}: {f} {getattr(tr, f)} != the CPU's {want[f]}")
+            fgap = float(np.max(np.abs(tr.realized_gap
+                                       - want["realized_gap"])))
+            check(fgap <= 1e-6, f"{what}: realized_gap off the CPU's by "
+                  f"{fgap}")
+            check(tr.dropped_links.sum() > 0, f"{what}: no link dropped")
+            out.update(dropped_links_total=float(tr.dropped_links.sum()),
+                       realized_gap_vs_cpu=fgap)
+
+        # the configuration at SMALL_D: on the card held to the CPU's
+        # trace; on the CPU it predicts the 20-step factors at scale
+        runs = {device: run(make(device, SMALL_D), prob_d, prob_d.x_star,
+                            iters=SMALL_ITERS)
+                for device, prob_d in small.items()}
+        gap = trace_gap(runs[dev], runs["cpu"], f"{what} at d={SMALL_D}")
+        factors = {}
+        for f in ("dist", "consensus"):
+            want_f = getattr(runs["cpu"], f)[iters - 1] / getattr(
+                runs["cpu"], f)[0]
+            got_f = getattr(tr, f)[-1] / getattr(tr, f)[0]
+            factors[f] = {"at_scale": got_f, "predicted": want_f}
+            check(1 / PREDICT_TOL <= got_f / want_f <= PREDICT_TOL,
+                  f"{what}: {f} moved {got_f}x in {iters} steps, the CPU at "
+                  f"d={SMALL_D} predicts {want_f}x")
+        names = {**MULTIWIRE_STAGES,
+                 "mix": f"{'faulted_' if fm else ''}neighbor_mix"}
+        if isinstance(topo, topology.TopologyBank):
+            names["round_mix"] = "round_mix"
+        breakdown, marks, step_ms = stage_sums(
+            lambda: run(eng, prob, prob.x_star, iters=4), dev, names, what)
+        emit({"phase": "multiwire_at_scale", "run": name,
+              "algorithm": alg_name, "topology": repr(topo),
+              "gossip": "neighbor", "faults": model, "hyper": hyper,
+              "n": n, "d": d, "iters": iters, "nvidia_smi": smi,
+              "ms_per_step": wall * 1e3 / iters, "breakdown_ms": breakdown,
+              "marks_per_step": marks, "breakdown_total_ms": step_ms,
+              "max_memory_allocated_GB": peak / 1e9,
+              "launches": launches[name],
+              "dist": [tr.dist[0], tr.dist[-1]],
+              "consensus": [tr.consensus[0], tr.consensus[-1]],
+              "bits_per_agent": tr.bits_per_agent[-1], "factors": factors,
+              "small_d": SMALL_D, "small_iters": SMALL_ITERS,
+              "small_cuda_vs_cpu": gap, **out})
+        del eng, tr, runs
+        torch.cuda.empty_cache()
+    del prob
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_oracle_at_scale(dev):
     """The noisy oracle at the real size: flat 2-bit LEAD, n = 8 ring,
     d = 2^25, lead_at_scale's objective and hypers, run(noise_std=0.1) for
@@ -1672,6 +1879,7 @@ def main():
     oracle = phase_oracle_at_scale(dev)
     new_paths = {phase: phase_new_paths(dev, phase, lead_trace)
                  for phase in NEW_PATHS}
+    multiwire = phase_multiwire_at_scale(dev, lead_trace, smi)
     # launches: each kernel's count on its path at the real size (LEAD's for
     # K1-K3, CHOCO's wire for K4-K6), each path run with the counts at 0
     at_scale = {"quantize_encode": baselines["pinf_2bit"],
@@ -1690,7 +1898,9 @@ def main():
             **{f"faults_at_scale/{w}": v[k] for w, v in faulted.items()},
             "oracle_at_scale": oracle[k],
             **{f"{phase}/{w}": v[k] for phase, runs in new_paths.items()
-               for w, v in runs.items()}}
+               for w, v in runs.items()},
+            **{f"multiwire_at_scale/{w}": v[k]
+               for w, v in multiwire.items()}}
         if k in hot_path:
             r["hot_path_512"] = hot_path[k]
     print(smi, flush=True)

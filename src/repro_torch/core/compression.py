@@ -90,6 +90,27 @@ def sub_seed(seed: int, j: int) -> int:
     return _mix32(_mix32(seed) * 0x9E3779B9 + j)
 
 
+_GOLD = 0x9E3779B9
+_SALT_WIRE = 0x3177         # counter-hash domain of a step's per-wire seeds
+
+
+def wire_seed(seed: int, j: int) -> int:
+    """The uint32 draw seed of wire j of a step whose seed is `seed`: a
+    multi-wire engine (C-GT's iterate wire 0 and tracker wire 1) draws wire
+    j's random input from this seed, on the flat path (its dither plane is
+    seeded ``wire_seed(seed, j) ^ k``) and the tree path alike.
+
+    The counter hash of core/faults.py over (seed, salt, j) with a salt of
+    its own, on the host: no device read.  murmur3's finalizer is a
+    bijection of 32 bits, so two wires of one step always get two distinct
+    seeds, hashed apart like any two unrelated seeds.  The
+    reference draws wire j under ``fold_in(key, j)`` (threefry, which torch
+    cannot reproduce); the parity tests replace this one function to hand
+    the port the reference's per-wire seeds."""
+    h = (int(seed) & _MASK32) ^ _mix32((_SALT_WIRE * _GOLD) & _MASK32)
+    return _mix32(h ^ ((int(j) * _GOLD + 0x85EBCA6B) & _MASK32))
+
+
 def counter_bits(shape, seed, device: DeviceLike = None) -> torch.Tensor:
     """The 24-bit integers (int64, in [0, 2^24)) under ``fast_uniform``:
     the murmur3-style integer finalizer of

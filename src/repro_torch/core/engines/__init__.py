@@ -6,11 +6,13 @@
     baselines.py  the paper's baselines: CHOCO-SGD, DeepSqueeze, QDGD,
                   DCD-SGD (compressed) and DGD, NIDS, EXTRA, D2 (exact, no
                   encode stage)
+    cedas.py      FlatCEDASEngine - compressed exact diffusion
+    cgt.py        FlatCGTEngine - compressed gradient tracking, the
+                  multi-wire engine (two payloads per step)
 
 ``engine_for`` is the registry front door: it dispatches
 ``(algorithm, compressor, topology)`` to the matching engine.  Every name
-and alias of the reference's registry is registered except CEDAS and C-GT
-(``cedas``, ``cgt``, ``c-gt``), which are not ported yet.  ``flat_twin``
+and alias of the reference's registry is registered.  ``flat_twin``
 builds the flat engine that mirrors a tree algorithm (core/baselines.py,
 or LEADSim).
 """
@@ -25,6 +27,8 @@ from repro_torch.core.engines.baselines import (
     FlatDeepSqueezeEngine, FlatEXTRAEngine, FlatNIDSEngine, FlatQDGDEngine,
     SimpleState,
 )
+from repro_torch.core.engines.cedas import FlatCEDASEngine
+from repro_torch.core.engines.cgt import FlatCGTEngine
 from repro_torch.core.engines.lead import FlatLEADEngine, FlatLEADState
 from repro_torch.device import DeviceLike
 from repro_torch.kernels.ops import DEFAULT_BLOCK
@@ -42,6 +46,9 @@ ENGINES = {
     "nids": FlatNIDSEngine,
     "extra": FlatEXTRAEngine,
     "d2": FlatD2Engine,
+    "cedas": FlatCEDASEngine,
+    "cgt": FlatCGTEngine,
+    "c-gt": FlatCGTEngine,
 }
 
 # exact baselines take no compressor (their payload is the raw buffer)
@@ -129,6 +136,8 @@ _TREE_TWINS = {
     "NIDS": "nids",
     "EXTRA": "extra",
     "D2": "d2",
+    "CEDAS": "cedas",
+    "CGT": "cgt",
     "LEADSim": "lead",
 }
 
@@ -161,8 +170,9 @@ def flat_twin(algo, dim: int, *, gossip: str = "dense",
                       device=device, **hyper)
 
 
-__all__ = ["ENGINES", "ExtraState", "FlatCHOCOEngine", "FlatD2Engine",
-           "FlatDCDEngine", "FlatDGDEngine", "FlatDeepSqueezeEngine",
+__all__ = ["ENGINES", "ExtraState", "FlatCEDASEngine", "FlatCGTEngine",
+           "FlatCHOCOEngine", "FlatD2Engine", "FlatDCDEngine",
+           "FlatDGDEngine", "FlatDeepSqueezeEngine",
            "FlatEXTRAEngine", "FlatEngineBase", "FlatLEADEngine",
            "FlatLEADState", "FlatNIDSEngine", "FlatQDGDEngine", "SimpleState",
            "algorithm_name", "describe", "engine_for", "fast_uniform",

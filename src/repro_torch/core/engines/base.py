@@ -35,11 +35,20 @@ what the family shares:
               core/compression.py), the reference's counter hash
               reproduced bit for bit.
 
-Every engine's iteration is the same three-beat bar (``_step_core``):
+Every engine's iteration is the same three-beat bar (``_step_core``, for
+the clean and the faulted wire alike):
 
     message(s, gb, hy)            -> (msg, ctx)      pre-communication math
     encode_payload / mix_payload                      the wire
     apply_stage(s, gb, q, wq, hy, ctx) -> (new, err)  post-communication math
+
+A multi-wire engine (C-GT ships an iterate wire and a tracker wire)
+declares one name per wire in ``wire_fields``; its ``message`` returns a
+tuple of that many buffers, each wire j is encoded under its own seed
+(``compression.wire_seed(seed, j)``), the payloads and decodes travel as
+tuples through one exchange (a faulted exchange realizes one link mask,
+shared by all its wires), ``apply_stage`` receives tuples (q, wq), and the
+wire bits are the sum over the wires.
 
 Hyper-parameters are ``Schedule`` values (core/lead.py) resolved once per
 step at ``state.k``, a 0-d tensor on the engine's device, so nothing in a
@@ -77,6 +86,7 @@ from typing import Any, ClassVar, Dict
 import numpy as np
 import torch
 
+from repro_torch.core import compression as compression_mod
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import topology as topology_mod
 from repro_torch.core.compression import (Identity, QuantizePNorm, TopK,
@@ -132,6 +142,10 @@ class FlatEngineBase:
 
     state_cls: ClassVar[type] = None
     consensus_init: ClassVar[Dict[str, str]] = {}
+    # one name per buffer the algorithm transmits each communication step;
+    # a multi-wire engine overrides it, returns a same-length tuple from
+    # ``message`` and receives same-length tuples (q, wq) in apply_stage
+    wire_fields: ClassVar[tuple] = ("msg",)
 
     def __post_init__(self):
         # materialize: a TopologyBank passes through, a periodic schedule
@@ -153,6 +167,13 @@ class FlatEngineBase:
                                                       faults_mod.FaultModel):
             raise TypeError(f"faults must be a core/faults.FaultModel, got "
                             f"{self.faults!r}")
+        if (self.faults is not None and self.n_wires > 1
+                and self.faults.policy != "renormalize"):
+            raise ValueError(
+                "multi-wire engines support only the 'renormalize' fault "
+                "policy: the stale cache holds one payload per agent but "
+                f"{type(self).__name__} ships {self.n_wires} wires per "
+                "exchange")
         if self._bank and self.comm_interval > 1:
             raise ValueError(
                 "comm_interval > 1 is not supported on a TopologyBank: "
@@ -198,6 +219,11 @@ class FlatEngineBase:
         return isinstance(self.topology, topology_mod.TopologyBank)
 
     @property
+    def n_wires(self) -> int:
+        """Number of buffers this engine ships per communication step."""
+        return len(self.wire_fields)
+
+    @property
     def comm_interval(self) -> int:
         """tau: the topology's communication interval (1 = every step)."""
         return int(getattr(self.topology, "comm_interval", 1))
@@ -214,6 +240,12 @@ class FlatEngineBase:
         stays False: the composite graph then is the inter graph, and the
         neighbor gather runs as on the flat path."""
         return self.gossip == "hier" and self.node_size > 1
+
+    @property
+    def W(self) -> np.ndarray:
+        """The dense (n, n) mixing matrix of the engine's topology (on a
+        bank, round 0's: TopologyBank.W)."""
+        return self.topology.W
 
     @property
     def n(self) -> int:
@@ -387,7 +419,13 @@ class FlatEngineBase:
         the mix.  On a bank, step (the host step counter) picks the round
         graph; on the hier wire q is block-constant (the decode broadcasts
         each node's payload), so its node view is exact and only node-level
-        buffers travel the inter graph."""
+        buffers travel the inter graph.  A multi-wire engine hands tuples
+        of payloads and decodes: each wire is decoded and mixed in turn, and
+        q, wq come back as tuples."""
+        if isinstance(decode, tuple):
+            outs = [self.mix_payload(pl, dec, step)
+                    for pl, dec in zip(payload, decode)]
+            return tuple(o[0] for o in outs), tuple(o[1] for o in outs)
         q = decode(payload)
         mark("decode")
         if self._hier:
@@ -422,40 +460,78 @@ class FlatEngineBase:
         the hier wire faults hit node -> node inter links and node
         broadcasts (intra-node averaging is local arithmetic): a lost
         inter link stalls every agent of the receiving node, so the
-        staleness age repeats node-wise over agents."""
+        staleness age repeats node-wise over agents.
+
+        A multi-wire engine's tuple of payloads crosses one exchange: the
+        link realization is drawn once and every wire sees it (a dropped
+        link loses all the wires at once, as one lost packet would); q and
+        wq come back as tuples, and the FaultState advances once (the
+        construction check allows only the renormalize policy there, so
+        there is no per-wire cache)."""
+        if not isinstance(decode, tuple):
+            q, wq, fs, _ = self._mix_one_faulted(payload, decode, k, fstate,
+                                                 step)
+            return q, wq, fs
+        qs, wqs, fs, link = [], [], fstate, None
+        for pl, dec in zip(payload, decode):
+            q, wq, fs, link = self._mix_one_faulted(pl, dec, k, fstate,
+                                                    step, link)
+            qs.append(q)
+            wqs.append(wq)
+        return tuple(qs), tuple(wqs), fs
+
+    def _link_realization(self, k: torch.Tensor, step: int = None):
+        """(backend, mask, ok) of the exchange at step k: the gossip backend
+        of the step's graph, its link-survival mask and the agents whose
+        broadcast went out (repeated node-wise on the hier wire)."""
+        fm = self.faults
+        if self._hier:
+            hg = self._hg
+            return (hg.inter, fm.table_mask(k, hg.inter.neighbors),
+                    torch.repeat_interleave(fm.broadcast_ok(k, hg.m),
+                                            self.node_size))
+        if self.gossip == "dense":
+            return (self._dense.for_round(step or 0),
+                    fm.dense_mask(k, self.n), fm.broadcast_ok(k, self.n))
+        nbr = self._neighbor.for_round(step or 0)
+        return (nbr, fm.table_mask(k, nbr.neighbors),
+                fm.broadcast_ok(k, self.n))
+
+    def _mix_one_faulted(self, payload, decode, k, fstate, step=None,
+                         link=None):
+        """One wire of mix_payload_faulted: (q, wq, new_fstate, link), with
+        `link` the exchange's realization (drawn here when None)."""
         fm = self.faults
         q = decode(payload)
         mark("decode")
+        backend, mask, ok = (self._link_realization(k, step)
+                             if link is None else link)
+        age = torch.where(ok, torch.zeros_like(fstate.age), fstate.age + 1)
         if self._hier:
             hg = self._hg
             qn = hg.node_view(q)
-            qn_tx = fm.corrupt_values(qn, k)
-            mask = fm.table_mask(k, hg.inter.neighbors)
-            wq = hg.broadcast(hg.inter.mix_masked(qn, mask, x_tx=qn_tx))
-            ok = torch.repeat_interleave(fm.broadcast_ok(k, hg.m),
-                                         self.node_size)
-            age = torch.where(ok, torch.zeros_like(fstate.age),
-                              fstate.age + 1)
+            wq = hg.broadcast(backend.mix_masked(
+                qn, mask, x_tx=fm.corrupt_values(qn, k)))
             mark("mix")
-            return q, wq, faults_mod.FaultState(cache=fstate.cache, age=age)
+            return (q, wq, faults_mod.FaultState(cache=fstate.cache, age=age),
+                    (backend, mask, ok))
         q_tx = fm.corrupt_values(q, k)
         cache = fstate.cache if fm.policy == "stale" else None
-        if self.gossip == "dense":
-            mask = fm.dense_mask(k, self.n)
-            wq = self._dense.for_round(step or 0).mix_masked(
-                q, mask, x_tx=q_tx, cache=cache)
-        else:
-            nbr = self._neighbor.for_round(step or 0)
-            mask = fm.table_mask(k, nbr.neighbors)
-            wq = nbr.mix_masked(q, mask, x_tx=q_tx, cache=cache)
-        ok = fm.broadcast_ok(k, self.n)
-        age = torch.where(ok, torch.zeros_like(fstate.age), fstate.age + 1)
+        wq = backend.mix_masked(q, mask, x_tx=q_tx, cache=cache)
         new_cache = fstate.cache
         if fm.policy == "stale":
             sel = ok.reshape((self.n,) + (1,) * (q.ndim - 1))
             new_cache = torch.where(sel, q_tx, fstate.cache)
         mark("mix")
-        return q, wq, faults_mod.FaultState(cache=new_cache, age=age)
+        return (q, wq, faults_mod.FaultState(cache=new_cache, age=age),
+                (backend, mask, ok))
+
+    @staticmethod
+    def rel_err(q: torch.Tensor, target: torch.Tensor,
+                ref: torch.Tensor) -> torch.Tensor:
+        """The in-step relative compression error of a transmitted message
+        under the Trace convention (core/compression.rel_err)."""
+        return compression_mod.rel_err(q, target, ref)
 
     # -- the algorithm stage protocol ---------------------------------------
     def message(self, s, gb, hy):
@@ -480,21 +556,37 @@ class FlatEngineBase:
         return self.apply_stage(s, gb, msg, msg, hy, ctx)
 
     def encode_stage(self, s, gb, seed: int, hy):
-        """message + wire encode: (payload, decode, wire_bits, ctx).  On
-        the hier wire each node encodes the mean of its agents' messages
-        once: the payload has m = n / node_size rows, the decode broadcasts
-        the node estimate back to its agents, and the per-agent bits are
-        the node payload's over node_size."""
+        """message + wire encode: (payload, decode, wire_bits, ctx).  A
+        multi-wire engine's message is a tuple: wire j is encoded under
+        ``compression.wire_seed(seed, j)``, payloads and decodes come back
+        as tuples, and the bits are summed over the wires (every buffer
+        crosses the wire each exchange)."""
         msg, ctx = self.message(s, gb, hy)
         mark("message")
+        if self.n_wires == 1:
+            return (*self._encode_one(msg, seed, s.k), ctx)
+        if not (isinstance(msg, tuple) and len(msg) == self.n_wires):
+            raise ValueError(
+                f"{type(self).__name__}.message must return one buffer per "
+                f"wire of {self.wire_fields}")
+        payloads, decodes, bits = zip(*(
+            self._encode_one(m, compression_mod.wire_seed(seed, j), s.k)
+            for j, m in enumerate(msg)))
+        return payloads, decodes, sum(bits), ctx
+
+    def _encode_one(self, msg, seed: int, k: torch.Tensor):
+        """One wire's encode: (payload, decode, wire_bits).  On the hier
+        wire each node encodes the mean of its agents' messages once: the
+        payload has m = n / node_size rows, the decode broadcasts the node
+        estimate back to its agents, and the per-agent bits are the node
+        payload's over node_size."""
         if self._hier:
             hg = self._hg
             payload, node_decode, bits = self.encode_payload(
-                hg.intra_mean(msg), seed, s.k)
+                hg.intra_mean(msg), seed, k)
             return (payload, lambda pl: hg.broadcast(node_decode(pl)),
-                    bits / self.node_size, ctx)
-        payload, decode, bits = self.encode_payload(msg, seed, s.k)
-        return payload, decode, bits, ctx
+                    bits / self.node_size)
+        return self.encode_payload(msg, seed, k)
 
     def _intra_project(self, state):
         """Block-average every agent-leading buffer of a hier engine's
@@ -514,51 +606,55 @@ class FlatEngineBase:
         mark("local")
         return new, zero, zero
 
-    def _step_core(self, s, g, seed: int, hy, step: int = None):
-        """The family's one iteration shape: encode -> gossip -> apply.
-        With comm_interval tau > 1 the whole wire fires only at
-        k % tau == 0, decided on the host; the other steps run local_stage
-        (zero bits, comp_err 0)."""
+    def _step_core(self, s, g, seed: int, hy, step: int = None,
+                   fstate=None):
+        """The family's one iteration shape, clean or faulted: encode ->
+        gossip -> apply (-> the hier intra-node projection).  With
+        comm_interval tau > 1 the whole wire fires only at k % tau == 0,
+        decided on the host; the other steps run local_stage (zero bits,
+        comp_err 0) and leave the FaultState as it was: no wire fired, so
+        nothing dropped and no age advanced.  With a FaultState the
+        exchange goes through mix_payload_faulted.  Returns (new_state,
+        comp_err, wire_bits, new_fstate)."""
         gb = self._blockify_g(g)
         step = self._host_step(s, step)
         if self.comm_interval > 1 and step % self.comm_interval:
-            return self._local(s, gb, hy)
+            new, zero, _ = self._local(s, gb, hy)
+            return new, zero, zero, fstate
         payload, decode, bits, ctx = self.encode_stage(s, gb, seed, hy)
-        q, wq = self.mix_payload(payload, decode, step)
+        if fstate is None:
+            q, wq = self.mix_payload(payload, decode, step)
+        else:
+            q, wq, fstate = self.mix_payload_faulted(payload, decode, s.k,
+                                                     fstate, step)
         new, comp_err = self.apply_stage(s, gb, q, wq, hy, ctx, step)
         if self._hier:
             new = self._intra_project(new)
             mark("intra_project")
-        return new, comp_err, bits
+        return new, comp_err, bits, fstate
 
     # -- driver protocol (engines driven directly by run()) -----------------
     def step_with_wire(self, state, g, seed: int, step: int = None):
         """(new_state, comp_err, wire_bits) with the engine's stored hypers
         resolved at state.k; step is the host step counter (== state.k),
         which run() passes."""
-        return self._step_core(state, g, seed, self.hypers_at(state.k), step)
+        return self._step_core(state, g, seed, self.hypers_at(state.k),
+                               step)[:3]
 
     def step_with_wire_faulted(self, state, fstate, g, seed: int,
                                step: int = None):
         """The faulted twin of step_with_wire: the same iteration, with the
         communication stage through mix_payload_faulted and a FaultState
         riding along.  Returns (new_state, new_fstate, comp_err,
-        wire_bits).  A local step of an interval leaves the FaultState as
-        it was: no wire fired, so nothing dropped and no age advanced."""
-        hy = self.hypers_at(state.k)
-        gb = self._blockify_g(g)
-        step = self._host_step(state, step)
-        if self.comm_interval > 1 and step % self.comm_interval:
-            new, zero, _ = self._local(state, gb, hy)
-            return new, fstate, zero, zero
-        payload, decode, bits, ctx = self.encode_stage(state, gb, seed, hy)
-        q, wq, fs = self.mix_payload_faulted(payload, decode, state.k, fstate,
-                                             step)
-        new, comp_err = self.apply_stage(state, gb, q, wq, hy, ctx, step)
-        if self._hier:
-            new = self._intra_project(new)
-            mark("intra_project")
+        wire_bits)."""
+        new, comp_err, bits, fs = self._step_core(
+            state, g, seed, self.hypers_at(state.k), step, fstate)
         return new, fs, comp_err, bits
+
+    def step_with_metrics(self, state, g, seed: int, step: int = None):
+        """(new_state, comp_err): the first two results of
+        step_with_wire."""
+        return self.step_with_wire(state, g, seed, step)[:2]
 
     def x_of(self, state):
         """Current iterates as (n, d) regardless of the blocked layout."""

@@ -168,7 +168,7 @@ class FlatLEADEngine(FlatEngineBase):
             hyper = self.hyper
         hy = {f: _at(getattr(hyper, f), state.k)
               for f in ("eta", "gamma", "alpha")}
-        return self._step_core(state, g, seed, hy, step)
+        return self._step_core(state, g, seed, hy, step)[:3]
 
     def step_with_wire(self, state: FlatLEADState, g, seed: int,
                        step: int = None):

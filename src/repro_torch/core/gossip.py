@@ -156,6 +156,12 @@ class EncodedNeighborGossip:
             out = out + w[:, 1 + j].reshape(shape) * x[self.neighbors[:, j]]
         return out
 
+    def mix_encoded(self, payload: Pytree, decode) -> Pytree:
+        """W @ decode(payload), leaf-wise, with one decode: decode commutes
+        with the per-agent gather, so the one decoded copy serves every
+        receiver."""
+        return tree_map(self.mix, decode(payload))
+
     def mix_masked(self, x: torch.Tensor, mask: torch.Tensor, *,
                    x_tx: torch.Tensor = None,
                    cache: torch.Tensor = None) -> torch.Tensor:

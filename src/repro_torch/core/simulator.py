@@ -98,9 +98,11 @@ class LEADSim:
     "dense", "neighbor" or "ring".  faults attaches a core/faults.FaultModel
     to the flat engine (the tree path has no faulted wire).  dim and device
     are bound by run() from the problem when left None; with ``gossip=``
-    the device defaults to its W's.
+    the device defaults to its W's.  The fields come in the reference's
+    order (``LEADSim(gossip, compressor, eta, ...)`` positionally), with
+    the port's device last.
     """
-    topology: Any = None
+    gossip: Optional[DenseGossip] = None
     compressor: Any = None
     eta: Any = 0.1
     gamma: Any = 1.0
@@ -109,9 +111,9 @@ class LEADSim:
     dither: str = "fast"
     engine_gossip: str = "dense"
     dim: Optional[int] = None
+    topology: Any = None
     faults: Any = None
     device: DeviceLike = None
-    gossip: Optional[DenseGossip] = None
 
     def __post_init__(self):
         if self.engine not in ("tree", "flat"):

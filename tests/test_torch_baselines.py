@@ -47,7 +47,6 @@ N, DIM = 8, 1300             # 3 logical blocks per agent, the last ragged
 STEPS = 3
 ATOL = 1e-5                  # the reference's flat-baseline contract
 ERR_RTOL = 1e-6
-UNPORTED = {"cedas", "cgt", "c-gt"}
 COMPRESSED = ["choco", "deepsqueeze", "qdgd", "dcd"]
 EXACT = ["dgd", "nids", "extra", "d2"]
 # the wires and how the reference's random input reaches the port engine
@@ -156,17 +155,19 @@ def _step_parity(eng, ref, steps=STEPS, seed0=0, lead_hyper=None):
 
 def test_registry_covers_the_reference():
     """Every name and alias of the reference's registry is registered,
-    except CEDAS and C-GT; exact and canonical names agree."""
-    assert set(ENGINES) == set(JAX_ENGINES) - UNPORTED
+    CEDAS and C-GT included; exact and canonical names agree."""
+    assert set(ENGINES) == set(JAX_ENGINES)
     for name in ENGINES:
         assert is_exact(name) == jax_is_exact(name), name
         assert ENGINES[name].__name__ == JAX_ENGINES[name].__name__, name
-    for name in UNPORTED:
-        with pytest.raises(KeyError):
-            engine_for(topology.ring(8), None, 64, algorithm=name, device=CPU)
+    for name in ("cedas", "cgt", "c-gt"):
+        eng = engine_for(topology.ring(8), None, 64, algorithm=name,
+                         device=CPU)
+        assert algorithm_name(eng) == jax_algorithm_name(
+            jax_engine_for(jax_topology.ring(8), None, 64, algorithm=name))
 
 
-@pytest.mark.parametrize("name", sorted(set(JAX_ENGINES) - UNPORTED))
+@pytest.mark.parametrize("name", sorted(JAX_ENGINES))
 @pytest.mark.parametrize("dim", [1000, 7840])
 def test_registry_entry_matches_reference(name, dim):
     """describe, the block layout (nb, nb_logical, tile_b), hyper_fields,

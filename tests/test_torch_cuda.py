@@ -453,7 +453,7 @@ class _Quadratic:
 
 
 SYNC_CASES = ("lead_dense", "lead_neighbor", "choco_stale", "lead_noisy",
-              "lead_bank", "lead_interval")
+              "lead_bank", "lead_interval", "cgt_bank")
 
 
 @pytest.mark.cuda
@@ -467,7 +467,9 @@ def test_faulted_run_makes_no_per_step_sync(cuda_device, case):
     SVD runs on the host after the loop.  Likewise the noisy oracle, and a
     faulted run over a bank (exponential_onepeer(8)) and over an interval
     (ring(8).with_interval(4)): run() hands each step its host counter, so
-    picking the round and gating the wire read nothing off the card."""
+    picking the round and gating the wire read nothing off the card.  And
+    faulted C-GT over random_matching(8): its per-wire seeds are host
+    ints, and its two wires share one link realization."""
     prob = _Quadratic(8, 4096, cuda_device)
     q2 = QuantizePNorm(bits=2)
     link = faults.FaultModel(seed=0, link_drop=0.1)
@@ -478,6 +480,10 @@ def test_faulted_run_makes_no_per_step_sync(cuda_device, case):
                           faults=faults.FaultModel(
                               seed=6, agent_drop=0.2, dropout_window=5,
                               policy="stale"), device=cuda_device)
+    elif case == "cgt_bank":
+        algo = engine_for(topology.random_matching(8, seed=0), q2, prob.d,
+                          algorithm="cgt", gossip="neighbor", eta=0.01,
+                          faults=link, device=cuda_device)
     elif case in ("lead_bank", "lead_interval"):
         topo = (topology.exponential_onepeer(8) if case == "lead_bank"
                 else topology.ring(8).with_interval(4))
@@ -584,3 +590,92 @@ def test_new_paths_launch_their_kernels(cuda_device):
         assert cuda_lib.launch_counts() == {
             k: count if k in kernels else 0 for k in cuda_lib.LAUNCHES}
         assert np.isfinite(tr.dist).all()
+
+
+MULTIWIRE = {"cedas_matching": ("cedas", lambda: topology.random_matching(
+                 8, seed=0), "neighbor"),
+             "cgt_onepeer": ("cgt", lambda: topology.exponential_onepeer(8),
+                             "neighbor"),
+             "cgt_ring_dense": ("cgt", lambda: topology.ring(8), "dense")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(MULTIWIRE))
+def test_cedas_and_cgt_steps_equal_the_cpu(cuda_device, case):
+    """Flat CEDAS on a matching bank and C-GT on a one-peer bank and the
+    ring: from the same state, with the same gradient and seed, five steps
+    each agree with the CPU's (every wire's codes and scales identical,
+    states within 1e-5); the tree CEDAS and CGT likewise."""
+    from repro_torch.core.baselines import CEDAS, CGT
+    name, build, gossip = MULTIWIRE[case]
+    engines = {dev: engine_for(build(), QuantizePNorm(bits=2), 1000,
+                               algorithm=name, gossip=gossip, eta=0.02,
+                               device=dev)
+               for dev in (cuda_device, "cpu")}
+    tree_cls = CEDAS if name == "cedas" else CGT
+    trees = {dev: tree_cls(topology=build(), compressor=QuantizePNorm(bits=2),
+                           eta=0.02, device=dev)
+             for dev in (cuda_device, "cpu")}
+    rng = np.random.default_rng(7)
+    x0, g0 = (torch.from_numpy(rng.standard_normal((8, 1000))
+                               .astype(np.float32)) for _ in range(2))
+    st, tst = engines["cpu"].init(x0, g0), trees["cpu"].init(x0, g0)
+    for step in range(5):
+        g = torch.from_numpy(rng.standard_normal((8, 1000)).astype(np.float32))
+        card_st, card_tst = (state_from_numpy(
+            type(s), {f: v.numpy() for f, v in s._asdict().items()},
+            device=cuda_device) for s in (st, tst))
+        payloads = [eng.encode_stage(s, eng.blockify(gg), 21 + step,
+                                     eng.hypers_at(s.k))[0]
+                    for eng, s, gg in zip(engines.values(), (card_st, st),
+                                          (g.to(cuda_device), g))]
+        pl_card, pl_cpu = (p if isinstance(p, tuple) else (p,)
+                           for p in payloads)
+        for a, b in zip(pl_card, pl_cpu):
+            for f in b:
+                assert torch.equal(a[f].cpu(), b[f]), (case, step, f)
+        want = engines["cpu"].step(st, g, 21 + step, step=step)
+        got = engines[cuda_device].step(card_st, g.to(cuda_device), 21 + step,
+                                        step=step)
+        twant = trees["cpu"].step(tst, g, 21 + step)
+        tgot = trees[cuda_device].step(card_tst, g.to(cuda_device), 21 + step)
+        for a, b in ((got, want), (tgot, twant)):
+            for f in b._fields:
+                np.testing.assert_allclose(getattr(a, f).cpu().numpy(),
+                                           getattr(b, f).numpy(), rtol=1e-5,
+                                           atol=1e-5, err_msg=f"{case} {f}")
+        st, tst = want, twant
+
+
+@pytest.mark.cuda
+def test_cedas_and_cgt_launch_their_kernels(cuda_device):
+    """run() launches, per step: K4 and K2 once for CEDAS on the 2-bit wire
+    and twice for C-GT (one per wire), K5 twice for C-GT on RandK, K6 twice
+    on TopK; K1 and K3 never; C-GT under renormalized link drops as on the
+    clean wire; C-GT's bits are twice CEDAS's on the same graph."""
+    prob = _Quadratic(8, 1024, cuda_device)
+    q2 = QuantizePNorm(bits=2)
+    wire = ("quantize_encode", "quantize_decode")
+    link = faults.FaultModel(seed=0, link_drop=0.1)
+    cases = [
+        ("cedas", topology.random_matching(8, seed=0), q2, None, wire, 20),
+        ("cgt", topology.exponential_onepeer(8), q2, None, wire, 40),
+        ("cgt", topology.ring(8), q2, link, wire, 40),
+        ("cgt", topology.ring(8), RandK(ratio=0.1, rescale=False), None,
+         ("randk_encode",), 40),
+        ("cgt", topology.ring(8), TopK(ratio=0.01), None, ("mask_apply",), 40),
+    ]
+    bits = {}
+    for name, topo, comp, fm, kernels, count in cases:
+        algo = engine_for(topo, comp, 1024, algorithm=name, eta=0.01,
+                          gossip="neighbor", faults=fm, device=cuda_device)
+        cuda_lib.reset_launch_counts()
+        tr = run(algo, prob, prob.x_star, iters=20)
+        assert cuda_lib.launch_counts() == {
+            k: count if k in kernels else 0 for k in cuda_lib.LAUNCHES}, name
+        assert np.isfinite(tr.dist).all()
+        bits[(name, type(comp).__name__, fm is None)] = tr.bits_per_agent[-1]
+    cedas_ring = run(engine_for(topology.ring(8), q2, 1024, algorithm="cedas",
+                                device=cuda_device),
+                     prob, prob.x_star, iters=20).bits_per_agent[-1]
+    assert bits[("cgt", "QuantizePNorm", False)] == 2 * cedas_ring

@@ -20,6 +20,7 @@ from repro.core import topology as jax_topology
 from repro.core.compression import Identity as JaxIdentity
 from repro.core.compression import QuantizePNorm as JaxQuantizePNorm
 from repro.core.convex import LinearRegression as JaxLinearRegression
+from repro.core.engines import ENGINES as JAX_ENGINES
 from repro.core.engines import describe as jax_describe
 from repro.core.engines import engine_for as jax_engine_for
 from repro.core.lead import LEADHyper as JaxLEADHyper
@@ -251,9 +252,15 @@ def test_registry_matches_reference():
     assert describe(dgd) == jax_describe(jax_engine_for(topo_j, None, 64,
                                                         algorithm="dgd"))
     assert is_exact("dgd") and not is_exact("lead")
-    for unported in ("cedas", "cgt"):
-        with pytest.raises(KeyError):
-            engine_for(topo_t, None, 64, algorithm=unported, device=CPU)
+    # CEDAS and C-GT are ported: each builds, and describes itself as the
+    # reference's engine does
+    for name in ("cedas", "cgt"):
+        eng = engine_for(topo_t, QuantizePNorm(bits=2), 64, algorithm=name,
+                         device=CPU)
+        ref = jax_engine_for(topo_j, JaxQuantizePNorm(bits=2), 64,
+                             algorithm=name)
+        assert describe(eng) == jax_describe(ref)
+        assert not is_exact(name)
     with pytest.raises(ValueError):
         engine_for(topo_t, QuantizePNorm(), 64, algorithm="dgd", device=CPU)
 
@@ -297,6 +304,111 @@ def test_unported_paths_raise():
     new, err, bits = eng.step_wire(eng.init(x, x), x, 0)
     assert int(new.k) == 1 and bool(torch.isfinite(new.x).all())
     assert float(bits) == QuantizePNorm(bits=2).wire_bits(64)
+
+
+def _ref_wire_seed(seed, j):
+    """The reference's seed of wire j of a step keyed PRNGKey(seed)."""
+    return int(np.asarray(jax.random.fold_in(jax.random.PRNGKey(seed),
+                                             j)).ravel()[-1])
+
+
+@pytest.mark.parametrize("name", sorted(JAX_ENGINES))
+def test_step_with_metrics_matches_step_with_wire(monkeypatch, name):
+    """The reference's driver protocol (src/repro/core/engines/base.py):
+    every registered engine's step_with_metrics returns the first two
+    results of its step_with_wire, and both equal the reference's step
+    (2-bit p=inf wire on the compressed engines, the per-wire seeds handed
+    across); W and rel_err are the reference's."""
+    from repro_torch.core import compression
+    monkeypatch.setattr(compression, "wire_seed", _ref_wire_seed)
+    exact = is_exact(name)
+    comp_t, comp_j = ((None, None) if exact else
+                      (QuantizePNorm(bits=2), JaxQuantizePNorm(bits=2)))
+    eng = engine_for(topology.ring(8), comp_t, 700, algorithm=name,
+                     device=CPU)
+    ref = jax_engine_for(jax_topology.ring(8), comp_j, 700, algorithm=name,
+                         dither="fast")
+    np.testing.assert_array_equal(eng.W, np.asarray(ref.W))
+    rng = np.random.default_rng(len(name))
+    x0, g0, g = (rng.standard_normal((8, 700)).astype(np.float32)
+                 for _ in range(3))
+    st_j = ref.init(jnp.asarray(x0), jnp.asarray(g0), jax.random.PRNGKey(0))
+    st_t = eng.init(torch.from_numpy(x0), torch.from_numpy(g0))
+    with jax.disable_jit():
+        new_j, err_j = ref.step_with_metrics(st_j, jnp.asarray(g),
+                                             jax.random.PRNGKey(21))
+    new_m, err_m = eng.step_with_metrics(st_t, torch.from_numpy(g), 21)
+    new_w, err_w, _ = eng.step_with_wire(st_t, torch.from_numpy(g), 21)
+    assert float(err_m) == float(err_w)
+    for f in new_j._fields:
+        assert torch.equal(getattr(new_m, f), getattr(new_w, f)), f
+        np.testing.assert_allclose(getattr(new_m, f).numpy(),
+                                   np.asarray(getattr(new_j, f)), rtol=0,
+                                   atol=1e-5, err_msg=f"{name}: {f}")
+    np.testing.assert_allclose(float(err_m), float(err_j), rtol=1e-6,
+                               err_msg=name)
+    q, t, r = (rng.standard_normal((8, 2, 512)).astype(np.float32)
+               for _ in range(3))
+    np.testing.assert_allclose(
+        float(eng.rel_err(*(torch.from_numpy(a) for a in (q, t, r)))),
+        float(ref.rel_err(*(jnp.asarray(a) for a in (q, t, r)))), rtol=1e-6)
+
+
+def test_mix_encoded_and_kernel_exports_match_reference():
+    """EncodedNeighborGossip.mix_encoded mixes decode(payload) once, as the
+    reference's; repro_torch.kernels re-exports the reference package's
+    kernel entry points that the port has."""
+    import repro.kernels as jax_kernels
+    import repro_torch.kernels as port_kernels
+    from repro.core.gossip import EncodedNeighborGossip as JaxNeighbor
+    x = np.random.default_rng(5).standard_normal((8, 3, 16)).astype(
+        np.float32)
+    for name in ("ring8", "er8"):
+        got = EncodedNeighborGossip.from_topology(
+            TOPOLOGIES[name](topology), CPU).mix_encoded(
+                {"v": torch.from_numpy(x)}, lambda pl: {"y": 2 * pl["v"]})
+        want = JaxNeighbor.from_topology(
+            TOPOLOGIES[name](jax_topology)).mix_encoded(
+                {"v": jnp.asarray(x)}, lambda pl: {"y": 2 * pl["v"]})
+        np.testing.assert_allclose(got["y"].numpy(), np.asarray(want["y"]),
+                                   rtol=0, atol=1e-5)
+    exported = ("dispatch", "ops", "ref", "sparsify", "lead_diff_encode_flat",
+                "lead_update_flat", "pack_codes", "quantize_decode",
+                "quantize_encode", "unpack_codes", "mask_apply",
+                "randk_encode")
+    for name in exported:
+        assert hasattr(jax_kernels, name), name
+        assert getattr(port_kernels, name).__name__.rsplit(".")[-1] == \
+            getattr(jax_kernels, name).__name__.rsplit(".")[-1], name
+    codes = torch.tensor([1, -2, 0, 3], dtype=torch.int8)
+    assert torch.equal(port_kernels.unpack_codes(
+        port_kernels.pack_codes(codes, 2), 4, 2), codes)
+
+
+def test_leadsim_fields_in_reference_order():
+    """LEADSim's fields come in the reference's order (its interpret, the
+    Pallas interpreter switch, has no counterpart), with device last, so
+    the positional call LEADSim(gossip, compressor, eta) steps exactly as
+    the keyword call."""
+    ref_fields = [f.name for f in dataclasses.fields(JaxLEADSim)
+                  if f.name != "interpret"]
+    assert [f.name for f in dataclasses.fields(LEADSim)] == \
+        ref_fields + ["device"]
+    dg = DenseGossip.from_topology(topology.ring(8), CPU)
+    rng = np.random.default_rng(6)
+    x0, g0, g = (torch.from_numpy(rng.standard_normal((8, 600)).astype(
+        np.float32)) for _ in range(3))
+    for engine in ("tree", "flat"):
+        pos = LEADSim(dg, QuantizePNorm(bits=2), 0.1, 1.0, 0.5, engine)
+        kw = LEADSim(gossip=dg, compressor=QuantizePNorm(bits=2), eta=0.1,
+                     engine=engine)
+        assert pos == kw
+        out_p = pos.step_with_wire(pos.init(x0, g0), g, 9)
+        out_k = kw.step_with_wire(kw.init(x0, g0), g, 9)
+        for a, b in zip(out_p[0], out_k[0]):
+            assert torch.equal(a, b), engine
+        assert float(out_p[1]) == float(out_k[1])
+        assert float(out_p[2]) == float(out_k[2])
 
 
 def test_fast_dither_plane_matches_reference():
