@@ -3,7 +3,7 @@
 
     PYTHONPATH=src python3 chip_smoke.py
 
-Builds the kernels from src/repro_torch/csrc, then runs sixteen phases,
+Builds the kernels from src/repro_torch/csrc, then runs eighteen phases,
 each printing one JSON line (the at-scale phases one per run); a failed
 check exits nonzero.
 
@@ -119,6 +119,21 @@ check exits nonzero.
                  tracker sum (sum s == sum g_prev) held at every step; each
                  configuration at d = 4,096 on the card against the CPU as
                  above; each run's ms/step, stage sums and peak memory
+  train_small    the decentralized LM trainer (dist/trainer.py) on the card
+                 against the CPU: granite-3-2b reduced (d_ff 341: padded
+                 leaves), 4 agents on ring(4), batch 2 x seq 32, the same
+                 weights and batches on both; uncompressed LEAD (K3) and
+                 NIDS over 5 steps, params, each agent's loss and grad_norm
+                 within 1e-4; 2-bit LEAD one step from the same state, the
+                 share of differing codes below 1e-5 and the bits exact
+  train_at_scale the trainer at granite-3-2b's published width, depth cut
+                 to 2 layers (12 leaves, 322,983,936 parameters per agent),
+                 4 agents on ring(4), 2-bit LEAD in blocks of 512, SGD at
+                 eta 0.03, batch 2 x seq 128, one warm-up step and 10 timed:
+                 K4 = K2 = K3 = 12 per step and K1 = K5 = K6 = 0, the bits
+                 exactly 989,138,304 per agent and step, the loss falling,
+                 the dual sum below 1e-3; its ms/step, stage sums and peak
+                 memory
 
 The line before the last lists every kernel with its launches on the main
 path, its error against the plain version and its times; the last line is
@@ -1842,6 +1857,289 @@ def phase_oracle_at_scale(dev):
     return launches
 
 
+# the decentralized LM trainer (dist/trainer.py): granite-3-2b, 4 agents on
+# ring(4), LEAD on the 2-bit p=inf wire in blocks of 512, SGD at the CLI's
+# eta 0.03 (gamma and alpha the engine's)
+TRAIN_AGENTS = 4
+TRAIN_SMALL_STEPS = 5
+TRAIN_RTOL = 1e-4           # card against CPU: matmul rounding, TF32 off
+TRAIN_CODE_FRAC = 1e-5      # codes that differ (tests/dist_worker.py:328)
+TRAIN_STEPS = 10            # timed, after one warm-up step
+TRAIN_SEQ, TRAIN_BATCH = 128, 2
+TRAIN_LAYERS = 2            # the published width, depth cut to 2 layers
+TRAIN_PARAMS = 322_983_936  # per agent at 2 layers: 12 leaves
+TRAIN_BITS = 989_138_304    # per agent and step: 3 bits an element, 32 a block
+TRAIN_DUAL_SUM = 1e-3       # max |sum_agents d| (tests/dist_worker.py:143)
+TRAIN_PEAK_GB = 75.0
+# the trainer's stage marks (dist/trainer.py and the engine's apply_stage;
+# the trainer records no comp_err, so it computes none)
+TRAIN_STAGES = {"gradient": "gradient", "optimizer": "optimizer",
+                "block": "block", "message": "message", "dither": "dither",
+                "encode": "K4_encode", "decode": "K2_decode", "mix": "mix",
+                "update": "K3_update", "unblock": "unblock"}
+
+
+def train_gradient_flop(cfg, n_agents, batch, seq):
+    """The floating-point operations of one trainer gradient (forward and
+    backward, 3x the forward) over all agents: 2 per multiply-add of every
+    matmul weight (q, k, v, o, the swiglu or gelu MLP and an untied head;
+    the embedding is a gather, not a matmul) per token, plus causal
+    attention's scores and values (4 n_heads head_dim per visible key:
+    seq (seq + 1) / 2 of them per sequence)."""
+    hd = cfg.head_dim
+    attn = cfg.d_model * (cfg.n_heads + 2 * cfg.kv_heads) * hd \
+        + cfg.n_heads * hd * cfg.d_model
+    mlp = (3 if cfg.mlp_type == "swiglu" else 2) * cfg.d_model * cfg.d_ff
+    head = 0 if cfg.tie_embeddings else cfg.d_model * cfg.vocab
+    tokens = n_agents * batch * seq
+    fwd = 2 * (cfg.n_layers * (attn + mlp) + head) * tokens
+    fwd += (cfg.n_layers * 4 * cfg.n_heads * hd * (seq * (seq + 1) // 2)
+            * n_agents * batch)
+    return 3 * fwd
+
+
+def _tree_to(tree, device):
+    from repro_torch.utils.tree import tree_map
+    return tree_map(lambda l: l.to(device), tree)
+
+
+def _state_to(state, device):
+    """A dist/trainer.TrainState copied to `device`."""
+    return state._replace(params=_tree_to(state.params, device),
+                          algo={f: _tree_to(t, device)
+                                for f, t in state.algo.items()},
+                          opt=_tree_to(state.opt, device),
+                          step=state.step.to(device))
+
+
+class CodeSpy:
+    """Records the codes of every QuantizePNorm.encode_blocks call made
+    inside its with block (on the host), to hold one device's codes
+    against another's."""
+
+    def __enter__(self):
+        from repro_torch.core.compression import QuantizePNorm
+
+        self.codes, self._cls = [], QuantizePNorm
+        self._orig = QuantizePNorm.encode_blocks
+        spy = self
+
+        def encode_blocks(comp, buf, dim, u):
+            payload, bits = spy._orig(comp, buf, dim, u)
+            spy.codes.append(payload["code"].cpu())
+            return payload, bits
+
+        QuantizePNorm.encode_blocks = encode_blocks
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.encode_blocks = self._orig
+
+
+def phase_train_small(dev):
+    """The trainer on the card against the CPU: granite-3-2b reduced (d_ff
+    341, so leaves are padded to whole blocks), 4 agents on ring(4), batch
+    2 x seq 32, the same weights and batches on both.  Uncompressed LEAD
+    (K3, no quantizer) and NIDS over TRAIN_SMALL_STEPS steps: params, each
+    agent's loss and grad_norm within TRAIN_RTOL of the CPU's.  LEAD on 2
+    bits, one step from the same state and batch: the share of codes that
+    differ below TRAIN_CODE_FRAC, the bits the CPU's exactly."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.compression import Identity
+    from repro_torch.data.synthetic import LMStreamConfig, lm_batch
+    from repro_torch.dist.trainer import (DistConfig, agent_losses,
+                                          init_train_state, make_train_step)
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config("granite-3-2b").reduced()
+    A = TRAIN_AGENTS
+    ds = LMStreamConfig(vocab=cfg.vocab, seq_len=32, batch_per_agent=2,
+                        n_agents=A)
+    batches = [lm_batch(ds, i, device="cpu")
+               for i in range(TRAIN_SMALL_STEPS)]
+    out = {"arch": cfg.name, "d_ff": cfg.d_ff, "n_agents": A}
+    for name, dc in (("lead_uncompressed",
+                      DistConfig(algorithm="lead", compressor=Identity())),
+                     ("nids", DistConfig(algorithm="nids"))):
+        st0 = init_train_state(cfg, A, dc, torch.Generator().manual_seed(0),
+                               "cpu")
+        res = {}
+        for device in ("cpu", dev):
+            st = _state_to(st0, device)
+            step = make_train_step(cfg, A, dc, device)
+            norms = []
+            for i, b in enumerate(batches):
+                st, m = step(st, _tree_to(b, device), 0, step=i)
+                norms.append(m["grad_norm"])
+            res[device] = (st, torch.stack(norms).cpu().double(),
+                           agent_losses(cfg, st.params,
+                                        _tree_to(batches[-1], device))
+                           .cpu().double())
+        (cs, cn, cl), (gs, gn, gl) = res["cpu"], res[dev]
+        params_gap = max(max_abs(g.cpu(), c) / float(c.abs().max())
+                         for g, c in zip(tree_leaves(gs.params),
+                                         tree_leaves(cs.params)))
+        loss_gap = float(((gl - cl).abs() / cl.abs()).max())
+        norm_gap = float(((gn - cn).abs() / cn.abs()).max())
+        out[name] = {"params_rel": params_gap, "loss_rel": loss_gap,
+                     "grad_norm_rel": norm_gap,
+                     "loss": [float(cl.mean()), float(gl.mean())]}
+        check(max(params_gap, loss_gap, norm_gap) <= TRAIN_RTOL,
+              f"train_small {name}: card vs CPU {out[name]}")
+
+    dc = DistConfig(algorithm="lead")
+    st0 = init_train_state(cfg, A, dc, torch.Generator().manual_seed(0),
+                           "cpu")
+    spied = {}
+    for device in ("cpu", dev):
+        step = make_train_step(cfg, A, dc, device)
+        with CodeSpy() as spy:
+            _, m = step(_state_to(st0, device), _tree_to(batches[0], device),
+                        0, step=0)
+        spied[device] = (spy.codes, float(m["bits_per_agent"]))
+    (cc, cb), (gc, gb) = spied["cpu"], spied[dev]
+    differ = sum(int((a != b).sum()) for a, b in zip(gc, cc))
+    total = sum(a.numel() for a in cc)
+    out["lead_2bit"] = {"codes_differing": differ, "codes": total,
+                        "share": differ / total, "bits_per_agent": gb}
+    check(len(gc) == len(cc) == len(tree_leaves(st0.params)),
+          f"train_small lead_2bit: {len(gc)} encodes, {len(cc)} on the CPU")
+    check(differ / total < TRAIN_CODE_FRAC,
+          f"train_small lead_2bit: {differ} of {total} codes differ")
+    check(gb == cb, f"train_small lead_2bit: bits {gb}, the CPU's {cb}")
+    emit({"phase": "train_small", **out})
+    return out
+
+
+def phase_train_at_scale(dev, smi, flops):
+    """The trainer at granite-3-2b's published width (d_model 2048, 32
+    query and 8 KV heads, head_dim 64, d_ff 8192, vocab 49,155), depth cut
+    to TRAIN_LAYERS: 4 agents x 322,983,936 parameters on ring(4), LEAD on
+    the 2-bit p=inf wire in blocks of 512, SGD at eta 0.03, the
+    heterogeneous stream at batch 2 x seq 128, seed 0.  One warm-up step,
+    then TRAIN_STEPS timed: launches per step K4 = K2 = K3 = 12 (one per
+    leaf) and K1 = K5 = K6 = 0; the bits exactly TRAIN_BITS every step; the
+    mean loss over agents on batch 0 below its value at step 0; the dual
+    sum below TRAIN_DUAL_SUM on every leaf; everything finite.  Prints
+    ms/step by the host clock, the stage sums of two more steps
+    (core/stage_timer.py), the gradient's operations and its rate against
+    the card's fp32 peak `flops`, the peak allocated and `smi`."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.stage_timer import StageTimer
+    from repro_torch.data.synthetic import LMStreamConfig, lm_batch
+    from repro_torch.dist.trainer import (DistConfig, agent_losses,
+                                          init_train_state, make_train_step)
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.utils.tree import tree_leaves
+
+    what = "train_at_scale"
+    cfg = dataclasses.replace(get_config("granite-3-2b"),
+                              n_layers=TRAIN_LAYERS)
+    A = TRAIN_AGENTS
+    dc = DistConfig(algorithm="lead", hyper={"eta": 0.03})
+    ds = LMStreamConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                        batch_per_agent=TRAIN_BATCH, n_agents=A, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, A, dc, torch.Generator(dev).manual_seed(0),
+                             dev)
+    leaves = tree_leaves(state.params)
+    check(len(leaves) == 12 and sum(l[0].numel() for l in leaves)
+          == TRAIN_PARAMS, f"{what}: {len(leaves)} leaves")
+    step = make_train_step(cfg, A, dc, dev)
+    b0 = lm_batch(ds, 0, device=dev)
+    loss0 = float(agent_losses(cfg, state.params, b0).mean())
+    state, _ = step(state, b0, 0, step=0)                  # warm-up step
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    batches = [lm_batch(ds, i, device=dev) for i in range(1, TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TRAIN_STEPS + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    metrics = []
+    for i, b in enumerate(batches, start=1):
+        state, m = step(state, b, 0, step=i)
+        events[i].record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda_lib.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # the device's time per step (between the events queued after each
+    # step) and the allocator's retries: a host clock above the device's
+    # sum is time the card waited on the host
+    device_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    expect_launches(launches, {"quantize_encode": 12 * TRAIN_STEPS,
+                               "quantize_decode": 12 * TRAIN_STEPS,
+                               "lead_update": 12 * TRAIN_STEPS}, what)
+    bits = torch.stack([m["bits_per_agent"] for m in metrics]).cpu()
+    norms = torch.stack([m["grad_norm"] for m in metrics]).cpu()
+    check(bool((bits == TRAIN_BITS).all()), f"{what}: bits {bits.tolist()}")
+    finite = all(bool(torch.isfinite(l).all())
+                 for t in (state.params, *state.algo.values())
+                 for l in tree_leaves(t))
+    check(finite and bool(torch.isfinite(norms).all()),
+          f"{what}: non-finite state or grad_norm")
+    loss1 = float(agent_losses(cfg, state.params, b0).mean())
+    check(loss1 < loss0, f"{what}: loss {loss0} -> {loss1}")
+    dual = [float(l.sum(0).abs().max()) for l in tree_leaves(state.algo["d"])]
+    check(max(dual) < TRAIN_DUAL_SUM, f"{what}: dual sum {dual}")
+    check(peak / 1e9 < TRAIN_PEAK_GB, f"{what}: peak {peak / 1e9} GB")
+
+    # stage sums of two more steps, each stage summed over its marks (one
+    # per leaf) and averaged over the steps
+    extra = [lm_batch(ds, i, device=dev)
+             for i in range(TRAIN_STEPS + 1, TRAIN_STEPS + 3)]
+    torch.cuda.synchronize()
+    with StageTimer(dev) as timer:
+        for i, b in enumerate(extra, start=TRAIN_STEPS + 1):
+            state, _ = step(state, b, 0, step=i)
+    acc, marks = {}, {}
+    for name, ms in timer.stages():
+        key = TRAIN_STAGES.get(name, name)
+        acc[key] = acc.get(key, 0.0) + ms / len(extra)
+        marks[key] = marks.get(key, 0) + 1 / len(extra)
+    check(set(acc) == set(TRAIN_STAGES.values()), f"{what}: stages "
+          f"{sorted(acc)}")
+    gb_plane = A * TRAIN_PARAMS * 4 / 1e9
+    grad_flop = train_gradient_flop(cfg, A, TRAIN_BATCH, TRAIN_SEQ)
+    grad_rate = grad_flop / (acc["gradient"] * 1e-3)
+    emit({"phase": what, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.kv_heads],
+          "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+          "n_agents": A, "params_per_agent": TRAIN_PARAMS,
+          "leaves": len(leaves), "batch": [TRAIN_BATCH, TRAIN_SEQ],
+          "steps": TRAIN_STEPS, "nvidia_smi": smi,
+          "ms_per_step": wall * 1e3 / TRAIN_STEPS,
+          "breakdown_ms": acc, "marks_per_step": marks,
+          "breakdown_total_ms": sum(acc.values()),
+          "gradient_flop": grad_flop, "gradient_flop_per_s": grad_rate,
+          "gradient_f32_peak_share": grad_rate / flops,
+          "device_ms_per_step": device_ms,
+          "max_memory_allocated_GB": peak / 1e9,
+          "max_memory_reserved_GB": torch.cuda.max_memory_reserved() / 1e9,
+          "alloc_retries": retries,
+          "f32_plane_GB": gb_plane, "setup_s": setup_s,
+          "launches": launches, "launches_per_step": per_step,
+          "bits_per_agent": float(bits[0]),
+          "bits_ratio_vs_f32": 32.0 * TRAIN_PARAMS / float(bits[0]),
+          "loss": [loss0, loss1], "grad_norm": [float(norms[0]),
+                                                float(norms[-1])],
+          "dual_sum_max": max(dual)})
+    del state, step, batches, extra, metrics
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1880,6 +2178,8 @@ def main():
     new_paths = {phase: phase_new_paths(dev, phase, lead_trace)
                  for phase in NEW_PATHS}
     multiwire = phase_multiwire_at_scale(dev, lead_trace, smi)
+    phase_train_small(dev)
+    train = phase_train_at_scale(dev, smi, flops)
     # launches: each kernel's count on its path at the real size (LEAD's for
     # K1-K3, CHOCO's wire for K4-K6), each path run with the counts at 0
     at_scale = {"quantize_encode": baselines["pinf_2bit"],
@@ -1900,7 +2200,8 @@ def main():
             **{f"{phase}/{w}": v[k] for phase, runs in new_paths.items()
                for w, v in runs.items()},
             **{f"multiwire_at_scale/{w}": v[k]
-               for w, v in multiwire.items()}}
+               for w, v in multiwire.items()},
+            "train_at_scale": train[k]}
         if k in hot_path:
             r["hot_path_512"] = hot_path[k]
     print(smi, flush=True)

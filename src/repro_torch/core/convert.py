@@ -1,11 +1,15 @@
-"""Carry a reference state, fault state or problem across to the port.
+"""Carry a reference state, fault state, problem, model or train state
+across to the port.
 
 The reference's engine states are NamedTuples of arrays; ``np.asarray`` of
 each field is the common currency the parity tests feed both packages.
+Model parameters and train states are pytrees (dicts, tuples, NamedTuples)
+of arrays; ``params_from_numpy`` and ``train_state_from_numpy`` rebuild them
+with the port's tensors, the same structure and the same leaf order.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -61,3 +65,66 @@ def logreg_from_numpy(feats, labels, n_classes: int, lam: float,
     """The port's LogisticRegression with the reference's data."""
     return LogisticRegression.from_arrays(feats, labels, n_classes, lam,
                                           device=device)
+
+
+def _leaf_tensor(x, dev: torch.device) -> torch.Tensor:
+    """An array as a tensor on `dev`: bfloat16 stays bfloat16, other floats
+    become f32, integers int64 (a 0-d integer too); always a copy."""
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32), device=dev).to(
+            torch.bfloat16)
+    if np.issubdtype(arr.dtype, np.floating):
+        return torch.tensor(arr, dtype=torch.float32, device=dev)
+    if np.issubdtype(arr.dtype, np.bool_):
+        return torch.tensor(arr, dtype=torch.bool, device=dev)
+    return torch.tensor(arr, dtype=torch.int64, device=dev)
+
+
+def _convert(tree, dev: torch.device, classes: Mapping[str, type]) -> Any:
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        cls = classes.get(type(tree).__name__)
+        if cls is None:
+            raise TypeError(f"no port counterpart for {type(tree).__name__}")
+        return cls(*(_convert(c, dev, classes) for c in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_convert(c, dev, classes) for c in tree)
+    if isinstance(tree, Mapping):
+        return {k: _convert(tree[k], dev, classes) for k in tree}
+    return _leaf_tensor(tree, dev)
+
+
+def params_from_numpy(tree, device: DeviceLike = None):
+    """The port's parameter pytree on `device` from the reference's
+    ``init_params`` pytree (arrays, e.g. after ``jax.device_get``): the
+    same dicts and tuples, so the same leaf order, with every leaf copied
+    to a tensor (floats f32, bfloat16 kept)."""
+    return _convert(tree, resolve_device(device), {})
+
+
+def train_state_from_numpy(state, device: DeviceLike = None):
+    """The port's dist/trainer.TrainState on `device` from the reference's
+    TrainState (or a mapping with its four fields): params and the algo
+    fields as in params_from_numpy, the optimizer state as the port's
+    MomentumState / AdamState (or ``()`` for SGD), step a 0-d int64.
+    (The trainer and the optimizers are imported here, not by the module:
+    core sits below dist.)"""
+    from repro_torch.dist.trainer import TrainState
+    from repro_torch.optim import optimizers
+
+    dev = resolve_device(device)
+    if hasattr(state, "_asdict"):
+        state = state._asdict()
+    classes = {"MomentumState": optimizers.MomentumState,
+               "AdamState": optimizers.AdamState}
+    opt = _convert(state["opt"], dev, classes)
+    if isinstance(opt, optimizers.AdamState):
+        opt = opt._replace(t=opt.t.to(torch.int32))
+    return TrainState(
+        params=_convert(state["params"], dev, {}),
+        algo={f: _convert(t, dev, {}) for f, t in state["algo"].items()},
+        opt=opt,
+        step=torch.tensor(int(np.asarray(state["step"])), dtype=torch.int64,
+                          device=dev))

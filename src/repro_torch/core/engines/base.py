@@ -38,9 +38,13 @@ what the family shares:
 Every engine's iteration is the same three-beat bar (``_step_core``, for
 the clean and the faulted wire alike):
 
-    message(s, gb, hy)            -> (msg, ctx)      pre-communication math
-    encode_payload / mix_payload                      the wire
-    apply_stage(s, gb, q, wq, hy, ctx) -> (new, err)  post-communication math
+    message(s, gb, hy)                 -> (msg, ctx)  pre-communication math
+    encode_payload / mix_payload                       the wire
+    apply_stage(s, gb, q, wq, hy, ctx) -> new         post-communication math
+
+plus ``comp_err(s, gb, q, hy, ctx)``, the step's compression error, which
+``_step_core`` computes after ``apply_stage`` for the simulator's trace (a
+driver that records no trace, as the trainer, never pays for it).
 
 A multi-wire engine (C-GT ships an iterate wire and a tracker wire)
 declares one name per wire in ``wire_fields``; its ``message`` returns a
@@ -539,9 +543,15 @@ class FlatEngineBase:
         raise NotImplementedError
 
     def apply_stage(self, s, gb, q, wq, hy, ctx, step=None):
-        """Post-communication math: (new_state, comp_err).  step is the
-        host step counter, which the bank recomputations read."""
+        """Post-communication math: the new state.  step is the host step
+        counter, which the bank recomputations read."""
         raise NotImplementedError
+
+    def comp_err(self, s, gb, q, hy, ctx):
+        """The in-step relative compression error of the transmitted
+        message (the Trace convention), from the state before the step and
+        the receiver's own decode q: 0 for an exact engine."""
+        return torch.zeros((), dtype=torch.float32, device=gb.device)
 
     def local_stage(self, s, gb, hy):
         """The no-communication step of a communication interval
@@ -553,7 +563,8 @@ class FlatEngineBase:
         tracking state (LEAD's h/hw/d, CHOCO's xhat, DCD's hats) override
         it to freeze that state."""
         msg, ctx = self.message(s, gb, hy)
-        return self.apply_stage(s, gb, msg, msg, hy, ctx)
+        return (self.apply_stage(s, gb, msg, msg, hy, ctx),
+                torch.zeros((), dtype=torch.float32, device=gb.device))
 
     def encode_stage(self, s, gb, seed: int, hy):
         """message + wire encode: (payload, decode, wire_bits, ctx).  A
@@ -627,7 +638,9 @@ class FlatEngineBase:
         else:
             q, wq, fstate = self.mix_payload_faulted(payload, decode, s.k,
                                                      fstate, step)
-        new, comp_err = self.apply_stage(s, gb, q, wq, hy, ctx, step)
+        new = self.apply_stage(s, gb, q, wq, hy, ctx, step)
+        comp_err = self.comp_err(s, gb, q, hy, ctx)
+        mark("comp_err")
         if self._hier:
             new = self._intra_project(new)
             mark("intra_project")

@@ -6,12 +6,13 @@ compressed algorithms ship only their encoded payload across agents
 (engines/base.py: the p=inf quantizer through K4 and K2, RandK through K5,
 TopK through K6), and every step returns the actual per-agent payload bits.
 
-Each engine is the base's two stage methods - ``message`` (the buffer it
-transmits) and ``apply_stage`` (the state update given the decoded message
-q and its mix wq) - plain elementwise torch that the base sequences around
-its wire and gossip stages.  ``state_cls`` / ``consensus_init`` are ported
-as data.  ``apply_stage`` marks "update" after the new state and
-"comp_err" after the compression error, for core/stage_timer.py.
+Each engine is the base's stage methods - ``message`` (the buffer it
+transmits), ``apply_stage`` (the state update given the decoded message q
+and its mix wq) and, for the compressed ones, ``comp_err`` - plain
+elementwise torch that the base sequences around its wire and gossip
+stages.  ``state_cls`` / ``consensus_init`` are ported as data.
+``apply_stage`` marks "update" after the new state, for
+core/stage_timer.py.
 
 Compressed baselines (encode stage = the compressor's wire):
 
@@ -71,12 +72,9 @@ def _zero_err(device) -> torch.Tensor:
 
 
 def _exact(new):
-    """An exact engine's (new_state, comp_err = 0), marking the update and
-    comp_err stage ends."""
+    """An exact engine's new state, marking the update's end."""
     mark("update")
-    err = _zero_err(new.x.device)
-    mark("comp_err")
-    return new, err
+    return new
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,9 +115,10 @@ class FlatCHOCOEngine(FlatEngineBase):
         x = x_half + hy["gamma"] * (xhat_w - xhat)
         new = HatState(x=x, xhat=xhat, xhat_w=xhat_w, k=s.k + 1)
         mark("update")
-        err = rel_err(q, x_half - s.xhat, x_half)
-        mark("comp_err")
-        return new, err
+        return new
+
+    def comp_err(self, s: HatState, gb, q, hy, ctx):
+        return rel_err(q, ctx - s.xhat, ctx)
 
     def local_stage(self, s: HatState, gb, hy):
         """Interval step: plain local SGD (x+ = x - eta g) with the public
@@ -157,10 +156,11 @@ class FlatDeepSqueezeEngine(FlatEngineBase):
         x = c + hy["gamma"] * (wc - c)
         new = ErrorState(x=x, e=e, k=s.k + 1)
         mark("update")
+        return new
+
+    def comp_err(self, s: ErrorState, gb, c, hy, ctx):
         # the transmitted message IS v (error-compensated), not state.x
-        err = rel_err(c, v, v)
-        mark("comp_err")
-        return new, err
+        return rel_err(c, ctx, ctx)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,9 +186,10 @@ class FlatQDGDEngine(FlatEngineBase):
         x = s.x + hy["gamma"] * (wq - q) - hy["eta"] * gb
         new = SimpleState(x=x, k=s.k + 1)
         mark("update")
-        err = rel_err(q, s.x, s.x)
-        mark("comp_err")
-        return new, err
+        return new
+
+    def comp_err(self, s: SimpleState, gb, q, hy, ctx):
+        return rel_err(q, s.x, s.x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,9 +224,10 @@ class FlatDCDEngine(FlatEngineBase):
             xhat_w = s.xhat_w + wq
         new = HatState(x=x, xhat=s.xhat + q, xhat_w=xhat_w, k=s.k + 1)
         mark("update")
-        err = rel_err(q, x - s.xhat, x)
-        mark("comp_err")
-        return new, err
+        return new
+
+    def comp_err(self, s: HatState, gb, q, hy, ctx):
+        return rel_err(q, ctx - s.xhat, ctx)
 
     def local_stage(self, s: HatState, gb, hy):
         """Interval step: plain local SGD with the hats frozen (as

@@ -76,6 +76,8 @@ class FlatCEDASEngine(FlatEngineBase):
         x = phi + 0.5 * hy["gamma"] * (hw - h)
         new = DiffusionState(x=x, psi_prev=psi, h=h, hw=hw, k=s.k + 1)
         mark("update")
-        err = self.rel_err(q, phi - s.h, phi)
-        mark("comp_err")
-        return new, err
+        return new
+
+    def comp_err(self, s: DiffusionState, gb, q, hy, ctx):
+        _, phi = ctx
+        return self.rel_err(q, phi - s.h, phi)

@@ -100,10 +100,11 @@ class FlatCGTEngine(FlatEngineBase):
                             h_x=s.h_x + alpha * q_x, hw_x=hw_x,
                             h_s=s.h_s + alpha * q_s, hw_s=hw_s, k=s.k + 1)
         mark("update")
+        return new
+
+    def comp_err(self, s: TrackingState, gb, q, hy, ctx):
         # the Trace convention: comp_err reports the iterate wire
-        err = self.rel_err(q_x, s.x - s.h_x, s.x)
-        mark("comp_err")
-        return new, err
+        return self.rel_err(q[0], s.x - s.h_x, s.x)
 
     def local_stage(self, s: TrackingState, gb, hy):
         """Interval (no-communication) step: the tracker refresh and the

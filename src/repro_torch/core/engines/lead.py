@@ -74,6 +74,9 @@ class FlatLEADEngine(FlatEngineBase):
     gamma: Schedule = 1.0
     alpha: Schedule = 0.5
 
+    state_cls = FlatLEADState
+    consensus_init = {"h": "copy", "hw": "copy", "d": "zeros"}
+
     @property
     def hyper(self) -> LEADHyper:
         """The stored hypers, for the per-call-hyper entry points."""
@@ -118,8 +121,7 @@ class FlatLEADEngine(FlatEngineBase):
 
     def apply_stage(self, s: FlatLEADState, gb, qh, wqh, hy, ctx=None,
                     step=None):
-        """Post-communication fused H / H_w / D / X update (lines 5-7, K3)
-        plus the exact in-step comp_err ||Qh - (Y-H)|| / ||Y||.
+        """Post-communication fused H / H_w / D / X update (lines 5-7, K3).
 
         On a bank the invariant hw == W h no longer holds by increments
         (hw would sum alpha W_j q over past rounds' graphs).  K3 computes
@@ -139,10 +141,13 @@ class FlatLEADEngine(FlatEngineBase):
         new = FlatLEADState(x=xo.reshape(shape3), d=do.reshape(shape3),
                             h=ho.reshape(shape3), hw=hwo.reshape(shape3),
                             k=s.k + 1)
+        return new
+
+    def comp_err(self, s: FlatLEADState, gb, qh, hy, ctx):
+        """The exact in-step ||Qh - (Y-H)|| / ||Y||: Y recomputed from the
+        state before the step (K1 fuses it away on the wire)."""
         y = s.x - hy["eta"] * gb - hy["eta"] * s.d
-        comp_err = rel_err(qh, y - s.h, y)
-        mark("comp_err")
-        return new, comp_err
+        return rel_err(qh, y - s.h, y)
 
     def local_stage(self, s: FlatLEADState, gb, hy):
         """Interval (no-communication) step: X advances by its full primal

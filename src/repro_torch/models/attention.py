@@ -1,0 +1,136 @@
+"""Attention for training: RoPE, grouped-query scores and values, chunked
+causal attention and sliding-window attention (the training part of
+``src/repro/models/attention.py``).
+
+Plain torch matmuls and softmax, as the reference's are plain XLA: no
+Pallas kernel stands behind them.  Both variants keep the reference's
+chunking, so the same sums are formed in the same groups:
+
+* ``chunked_causal_attention`` is online-softmax over kv chunks (the S x S
+  score matrix is never formed), query chunk by query chunk;
+* ``windowed_attention`` slices a kv band of ``chunk + window`` keys per
+  query chunk, so sliding-window layers cost O(S * (window + chunk)).
+
+GQA: kv heads are broadcast over their group of query heads inside the
+einsums.  The decode side (``KVCache``, ``decode_attention``,
+``update_cache``, ``chunk_attention``, ``init_cache``) and
+``cross_attention`` come with serving (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+# -- RoPE ------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float,
+               device: torch.device = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    ang = positions[..., None].to(torch.float32) * freqs      # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- grouped-query attention pieces ---------------------------------------------
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: (B, Cq, nq, hd), k: (B, Ck, nkv, hd) -> (B, nq, Cq, Ck)."""
+    B, Cq, nq, hd = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(B, Cq, nkv, nq // nkv, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k)
+    return s.reshape(B, nq, Cq, k.shape[1])
+
+
+def _gqa_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p: (B, nq, Cq, Ck), v: (B, Ck, nkv, hd) -> (B, Cq, nq, hd)."""
+    B, nq, Cq, Ck = p.shape
+    nkv = v.shape[2]
+    pg = p.reshape(B, nkv, nq // nkv, Cq, Ck)
+    o = torch.einsum("bkgqs,bskh->bqkgh", pg, v)
+    return o.reshape(B, Cq, nq, v.shape[-1])
+
+
+# -- chunked causal attention (full mask) ----------------------------------------
+
+def chunked_causal_attention(q, k, v, *, chunk: int = 1024,
+                             q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax causal attention.
+
+    q: (B, Sq, nq, hd); k, v: (B, Sk, nkv, hd).  q position i attends to
+    kv positions <= i + q_offset."""
+    B, Sq, nq, hd = q.shape
+    Sk = k.shape[1]
+    c = min(chunk, Sq, Sk)
+    while Sq % c or Sk % c:
+        c -= 1
+    scale = hd ** -0.5
+    dev = q.device
+    outs = []
+    for qi in range(Sq // c):
+        q_blk = q[:, qi * c:(qi + 1) * c]
+        q_pos = q_offset + qi * c + torch.arange(c, device=dev)
+        m = torch.full((B, nq, c), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, nq, c), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, nq, c, hd), dtype=torch.float32, device=dev)
+        for ki in range(Sk // c):
+            k_blk = k[:, ki * c:(ki + 1) * c]
+            v_blk = v[:, ki * c:(ki + 1) * c]
+            k_pos = ki * c + torch.arange(c, device=dev)
+            s = _gqa_scores(q_blk, k_blk) * scale             # (B, nq, c, c)
+            mask = q_pos[:, None] >= k_pos[None, :]
+            s = torch.where(mask[None, None], s, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1)
+            acc = acc * corr[..., None] + _gqa_values(p, v_blk).transpose(1, 2)
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        outs.append(out.transpose(1, 2))                      # (B, c, nq, hd)
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def windowed_attention(q, k, v, *, window: int,
+                       chunk: int = 512) -> torch.Tensor:
+    """Sliding-window causal attention with banded kv slicing: each query
+    chunk [t, t+c) attends only to kv [t + c - 1 - window, t + c)."""
+    B, S, nq, hd = q.shape
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    band = c + window
+    scale = hd ** -0.5
+    dev = q.device
+    # left-pad keys by `window` so every band slice is in range
+    kp = F.pad(k, (0, 0, 0, 0, window, 0))
+    vp = F.pad(v, (0, 0, 0, 0, window, 0))
+    outs = []
+    for qi in range(S // c):
+        start = qi * c
+        q_blk = q[:, start:start + c]
+        k_blk = kp[:, start:start + band]
+        v_blk = vp[:, start:start + band]
+        q_pos = start + torch.arange(c, device=dev)
+        k_pos = start - window + torch.arange(band, device=dev)
+        s = _gqa_scores(q_blk, k_blk) * scale                 # (B, nq, c, band)
+        mask = ((k_pos[None, :] <= q_pos[:, None])
+                & (k_pos[None, :] > q_pos[:, None] - window - 1)
+                & (k_pos[None, :] >= 0))
+        s = torch.where(mask[None, None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        outs.append(_gqa_values(p, v_blk))                    # (B, c, nq, hd)
+    return torch.cat(outs, dim=1).to(q.dtype)

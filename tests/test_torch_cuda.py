@@ -16,8 +16,8 @@ import torch
 
 from repro_torch.core import faults, topology
 from repro_torch.core.baselines import CHOCO_SGD, DGD, NIDS
-from repro_torch.core.compression import (QuantizePNorm, RandK, TopK,
-                                          agent_draws, fast_normal)
+from repro_torch.core.compression import (Identity, QuantizePNorm, RandK,
+                                          TopK, agent_draws, fast_normal)
 from repro_torch.core.convert import state_from_numpy
 from repro_torch.core.convex import LinearRegression, batch_indices
 from repro_torch.core.engines import engine_for
@@ -679,3 +679,162 @@ def test_cedas_and_cgt_launch_their_kernels(cuda_device):
                                 device=cuda_device),
                      prob, prob.x_star, iters=20).bits_per_agent[-1]
     assert bits[("cgt", "QuantizePNorm", False)] == 2 * cedas_ring
+
+
+# -- the decentralized LM trainer (dist/trainer.py) ------------------------------
+
+def _trainer_setup(dc_kwargs, seq=32):
+    """granite-3-2b reduced (d_ff 341), 4 agents, the state on the CPU from
+    a seeded generator, batches 2 x seq on the CPU."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import LMStreamConfig, lm_batch
+    from repro_torch.dist.trainer import DistConfig, init_train_state
+
+    cfg = get_config("granite-3-2b").reduced()
+    dc = DistConfig(**dc_kwargs)
+    state = init_train_state(cfg, 4, dc, torch.Generator().manual_seed(0),
+                             "cpu")
+    ds = LMStreamConfig(vocab=cfg.vocab, seq_len=seq, batch_per_agent=2,
+                        n_agents=4)
+    return cfg, dc, state, lambda i, dev: lm_batch(ds, i, device=dev)
+
+
+def _tree_on(tree, dev):
+    from repro_torch.utils.tree import tree_map
+    return tree_map(lambda l: l.to(dev), tree)
+
+
+def _state_on(state, dev):
+    return state._replace(params=_tree_on(state.params, dev),
+                          algo={f: _tree_on(t, dev)
+                                for f, t in state.algo.items()},
+                          step=state.step.to(dev))
+
+
+TRAINER_RUNS = {"lead_uncompressed": {"algorithm": "lead",
+                                      "compressor": Identity()},
+                "nids": {"algorithm": "nids"}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TRAINER_RUNS))
+def test_trainer_on_the_card_matches_the_cpu(cuda_device, name):
+    """chip_smoke.py's train_small bounds: uncompressed LEAD (K3) and NIDS
+    over 5 steps from the same weights on the same batches, params, each
+    agent's loss and grad_norm within 1e-4 relative of the CPU's (the
+    card's matmul rounding, TF32 off)."""
+    from repro_torch.dist.trainer import agent_losses, make_train_step
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg, dc, state, batch = _trainer_setup(TRAINER_RUNS[name])
+    res = {}
+    for dev in ("cpu", cuda_device):
+        st = _state_on(state, dev)
+        step = make_train_step(cfg, 4, dc, dev)
+        norms = []
+        for i in range(5):
+            st, m = step(st, _tree_on(batch(i, "cpu"), dev), 0, step=i)
+            norms.append(float(m["grad_norm"]))
+        losses = agent_losses(cfg, st.params,
+                              _tree_on(batch(4, "cpu"), dev)).cpu().numpy()
+        res[str(dev)] = (tree_leaves(st.params), np.array(norms), losses)
+    (cx, cn, cl), (gx, gn, gl) = res["cpu"], res[str(cuda_device)]
+    for a, b in zip(gx, cx):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    np.testing.assert_allclose(gn, cn, rtol=1e-4)
+    np.testing.assert_allclose(gl, cl, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_trainer_2bit_codes_on_the_card_match_the_cpu(cuda_device):
+    """2-bit LEAD, one step from the same state and batch: fewer than 1e-5
+    of the codes differ from the CPU's (a gradient rounding difference can
+    flip a knife-edge code), and the bits are the CPU's exactly."""
+    from repro_torch.core.compression import QuantizePNorm
+    from repro_torch.dist.trainer import make_train_step
+
+    cfg, dc, state, batch = _trainer_setup({"algorithm": "lead"})
+    orig = QuantizePNorm.encode_blocks
+    codes, bits = {}, {}
+    for dev in ("cpu", cuda_device):
+        seen = []
+
+        def spy(comp, buf, dim, u):
+            payload, b = orig(comp, buf, dim, u)
+            seen.append(payload["code"].cpu())
+            return payload, b
+
+        QuantizePNorm.encode_blocks = spy
+        try:
+            _, m = make_train_step(cfg, 4, dc, dev)(
+                _state_on(state, dev), batch(0, dev), 0, step=0)
+        finally:
+            QuantizePNorm.encode_blocks = orig
+        codes[str(dev)], bits[str(dev)] = seen, float(m["bits_per_agent"])
+    cpu, card = codes["cpu"], codes[str(cuda_device)]
+    assert len(cpu) == len(card) == 12
+    differ = sum(int((a != b).sum()) for a, b in zip(card, cpu))
+    assert differ < 1e-5 * sum(a.numel() for a in cpu), differ
+    assert bits["cpu"] == bits[str(cuda_device)]
+
+
+@pytest.mark.cuda
+def test_trainer_step_launches_its_kernels(cuda_device):
+    """One 2-bit LEAD step of the trainer: K4, K2 and K3 once per leaf
+    (12), K1 never (the reference trainer never calls encode_stage), K5
+    and K6 never."""
+    from repro_torch.dist.trainer import make_train_step
+
+    cfg, dc, state, batch = _trainer_setup({"algorithm": "lead"})
+    step = make_train_step(cfg, 4, dc, cuda_device)
+    st = _state_on(state, cuda_device)
+    st, _ = step(st, batch(0, cuda_device), 0, step=0)   # builds the kernels
+    b = batch(1, cuda_device)
+    cuda_lib.reset_launch_counts()
+    step(st, b, 0, step=1)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts() == {
+        "lead_diff_encode": 0, "quantize_decode": 12, "lead_update": 12,
+        "quantize_encode": 12, "randk_encode": 0, "mask_apply": 0}
+
+
+TRAINER_SYNC_CASES = {
+    "bank": lambda: {"topology": topology.exponential_onepeer(4)},
+    "interval": lambda: {"topology": topology.ring(4).with_interval(2)},
+    "faults": lambda: {"faults": faults.FaultModel(seed=0, link_drop=0.1)},
+    "hier": lambda: {"topology": topology.hierarchical(topology.ring(2), 2)},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TRAINER_SYNC_CASES))
+def test_trainer_step_makes_no_per_step_sync(cuda_device, case):
+    """The trainer's step given its host step counter reads nothing off the
+    card: as many synchronising calls in 4 steps as in 2 (torch.cuda.
+    set_sync_debug_mode flags each), for a bank's round, an interval's gate,
+    the fault masks and the hier wire - all decided from the host counter
+    or hashed on the card."""
+    from repro_torch.dist.trainer import make_train_step
+
+    cfg, dc, state, batch = _trainer_setup(
+        {"algorithm": "lead", **TRAINER_SYNC_CASES[case]()})
+    step = make_train_step(cfg, 4, dc, cuda_device)
+    st = _state_on(state, cuda_device)
+    st, _ = step(st, batch(0, cuda_device), 0, step=0)   # builds the kernels
+    batches = [batch(i, cuda_device) for i in range(1, 5)]
+    torch.cuda.synchronize()
+
+    def syncs(n, st):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for i in range(n):
+                    st, m = step(st, batches[i], 0, step=i + 1)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert torch.isfinite(m["grad_norm"]).item()
+        return [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught
+                if "called a synchronizing CUDA operation" in str(w.message)]
+
+    assert syncs(4, st) == syncs(2, st)
