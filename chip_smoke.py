@@ -3,7 +3,7 @@
 
     PYTHONPATH=src python3 chip_smoke.py
 
-Builds the kernels from src/repro_torch/csrc, then runs eighteen phases,
+Builds the kernels from src/repro_torch/csrc, then runs twenty-one phases,
 each printing one JSON line (the at-scale phases one per run); a failed
 check exits nonzero.
 
@@ -120,20 +120,37 @@ check exits nonzero.
                  configuration at d = 4,096 on the card against the CPU as
                  above; each run's ms/step, stage sums and peak memory
   train_small    the decentralized LM trainer (dist/trainer.py) on the card
-                 against the CPU: granite-3-2b reduced (d_ff 341: padded
-                 leaves), 4 agents on ring(4), batch 2 x seq 32, the same
-                 weights and batches on both; uncompressed LEAD (K3) and
-                 NIDS over 5 steps, params, each agent's loss and grad_norm
-                 within 1e-4; 2-bit LEAD one step from the same state, the
-                 share of differing codes below 1e-5 and the bits exact
-  train_at_scale the trainer at granite-3-2b's published width, depth cut
-                 to 2 layers (12 leaves, 322,983,936 parameters per agent),
-                 4 agents on ring(4), 2-bit LEAD in blocks of 512, SGD at
-                 eta 0.03, batch 2 x seq 128, one warm-up step and 10 timed:
-                 K4 = K2 = K3 = 12 per step and K1 = K5 = K6 = 0, the bits
-                 exactly 989,138,304 per agent and step, the loss falling,
-                 the dual sum below 1e-3; its ms/step, stage sums and peak
-                 memory
+                 against the CPU, for every family at .reduced() size:
+                 granite-3-2b (d_ff 341: padded leaves), granite-moe and
+                 kimi-k2 (MoE), xlstm-1.3b at 6 layers (mLSTM and sLSTM),
+                 recurrentgemma-2b at 3 (RG-LRU and local attention),
+                 llama-3.2-vision (gated cross-attention to the vision
+                 stub) and whisper-tiny (the audio encoder and its frame
+                 stub); 4 agents on ring(4), batch 2 x seq 32, the same
+                 weights, batches and memory on both; uncompressed LEAD (K3)
+                 and NIDS over 5 steps, params, each agent's loss and
+                 grad_norm within 1e-4; 2-bit LEAD one step from the same
+                 state, the share of differing codes below 1e-5 and the
+                 bits exact; an MoE's tokens whose experts differ from the
+                 CPU's counted (the bounds held on the steps before the
+                 first); one line per arch
+  train_at_scale, moe_at_scale, recurrent_at_scale, audio_at_scale
+                 the trainer at each arch's published width, one function
+                 over TRAIN_AT_SCALE: granite-3-2b cut to 2 layers (12
+                 leaves, 322,983,936 parameters per agent, 4 agents),
+                 granite-moe-1b-a400m cut to 4 layers (32 experts top-8,
+                 13 leaves, 314,719,232, 4 agents), xlstm-1.3b cut to one
+                 pattern period of 6 layers (60 leaves, 427,151,400, 2
+                 agents on ring(2)), whisper-tiny whole (4 encoder and 4
+                 decoder layers, 1,500 stub frames, 51 leaves, 56,357,380, 4
+                 agents); 2-bit LEAD in blocks of 512, SGD at eta 0.03
+                 (xLSTM: Adam at 1e-3), batch 2 x seq 128, one warm-up step
+                 and 10 timed: K4 = K2 = K3 = one per leaf and K1 = K5 = K6
+                 = 0, the bits exactly the pinned count per agent and step,
+                 the loss falling, the dual sum below 1e-3 x 0.03 / eta,
+                 peak allocated below 75 GB; each with
+                 its ms/step, stage sums, gradient FLOP/s and peak memory,
+                 and the MoE's routing (pairs dropped, heaviest expert)
 
 The line before the last lists every kernel with its launches on the main
 path, its error against the plain version and its times; the last line is
@@ -1857,20 +1874,61 @@ def phase_oracle_at_scale(dev):
     return launches
 
 
-# the decentralized LM trainer (dist/trainer.py): granite-3-2b, 4 agents on
-# ring(4), LEAD on the 2-bit p=inf wire in blocks of 512, SGD at the CLI's
-# eta 0.03 (gamma and alpha the engine's)
+# the decentralized LM trainer (dist/trainer.py): 4 agents on ring(4) (2 on
+# ring(2) where 4 would not fit), LEAD on the 2-bit p=inf wire in blocks of
+# 512, SGD at the CLI's eta 0.03 (gamma and alpha the engine's)
 TRAIN_AGENTS = 4
 TRAIN_SMALL_STEPS = 5
 TRAIN_RTOL = 1e-4           # card against CPU: matmul rounding, TF32 off
 TRAIN_CODE_FRAC = 1e-5      # codes that differ (tests/dist_worker.py:328)
 TRAIN_STEPS = 10            # timed, after one warm-up step
 TRAIN_SEQ, TRAIN_BATCH = 128, 2
-TRAIN_LAYERS = 2            # the published width, depth cut to 2 layers
-TRAIN_PARAMS = 322_983_936  # per agent at 2 layers: 12 leaves
-TRAIN_BITS = 989_138_304    # per agent and step: 3 bits an element, 32 a block
 TRAIN_DUAL_SUM = 1e-3       # max |sum_agents d| (tests/dist_worker.py:143)
+TRAIN_ETA = 0.03            # ... at the trainer's eta 0.03; the sum is 0 up
+                            # to rounding times gamma / (2 eta), so at
+                            # another eta the bound scales by 0.03 / eta
 TRAIN_PEAK_GB = 75.0
+# train_small: every family at .reduced() size (these keywords), the card
+# against the CPU, free over its steps or, with restart, each step from the
+# CPU's state before it and the params held against the state's largest
+# |x|: xLSTM's step at eta 0.03 amplifies a rounding difference 15-90x a
+# step (the port against itself on the CPU, only the summation order
+# changed, parts by 1e-6, 7.5e-5, 1.2e-2, 0.55 over 4 steps; every other
+# family stays below 1e-6), and a step moves its embedding by several
+# times the embedding's size (grad_norm ~240 at eta 0.03 on 0.02-scale
+# rows), so a 6e-5 gradient difference is 2e-4 of that leaf's size
+TRAIN_SMALL_ARCHS = (("granite-3-2b", {}, False),
+                     ("granite-moe-1b-a400m", {}, False),
+                     ("kimi-k2-1t-a32b", {}, False),
+                     ("xlstm-1.3b", {"n_layers": 6}, True),
+                     ("recurrentgemma-2b", {"n_layers": 3}, False),
+                     ("llama-3.2-vision-11b", {}, False),
+                     ("whisper-tiny", {}, False))
+# the at-scale trainer phases: each arch at its published width, its depth
+# cut (n_layers; None keeps the whole model) so that the agents' LEAD state
+# fits the card; the optimizer and LEAD's eta; pinned: leaves and
+# parameters per agent, and the bits per agent and step (3 bits an element
+# and 32 a 512-block; a leaf below one block or not a multiple of 512 pays
+# for its last block whole).  xLSTM trains with Adam at eta 1e-3: with SGD
+# at eta 0.03 (or 0.01) its gradient (norm ~300, growing) drives the input
+# and forget gates until the reference's chunkwise mLSTM divides 0 by 0
+# (both packages do: tests/test_torch_recurrent.py), so the loss is NaN by
+# the second step; SGD at 1e-3 or 3e-3 stays finite but its loss does not
+# fall in 10 steps
+TRAIN_AT_SCALE = {
+    "train_at_scale": dict(arch="granite-3-2b", n_layers=2, agents=4,
+                           optimizer="sgd", eta=TRAIN_ETA, leaves=12,
+                           params=322_983_936, bits=989_138_304),
+    "moe_at_scale": dict(arch="granite-moe-1b-a400m", n_layers=4, agents=4,
+                         optimizer="sgd", eta=TRAIN_ETA, leaves=13,
+                         params=314_719_232, bits=963_827_648),
+    "recurrent_at_scale": dict(arch="xlstm-1.3b", n_layers=6, agents=2,
+                               optimizer="adam", eta=1e-3, leaves=60,
+                               params=427_151_400, bits=1_308_151_320),
+    "audio_at_scale": dict(arch="whisper-tiny", n_layers=None, agents=4,
+                           optimizer="sgd", eta=TRAIN_ETA, leaves=51,
+                           params=56_357_380, bits=172_594_604),
+}
 # the trainer's stage marks (dist/trainer.py and the engine's apply_stage;
 # the trainer records no comp_err, so it computes none)
 TRAIN_STAGES = {"gradient": "gradient", "optimizer": "optimizer",
@@ -1881,21 +1939,68 @@ TRAIN_STAGES = {"gradient": "gradient", "optimizer": "optimizer",
 
 def train_gradient_flop(cfg, n_agents, batch, seq):
     """The floating-point operations of one trainer gradient (forward and
-    backward, 3x the forward) over all agents: 2 per multiply-add of every
-    matmul weight (q, k, v, o, the swiglu or gelu MLP and an untied head;
-    the embedding is a gather, not a matmul) per token, plus causal
-    attention's scores and values (4 n_heads head_dim per visible key:
-    seq (seq + 1) / 2 of them per sequence)."""
-    hd = cfg.head_dim
-    attn = cfg.d_model * (cfg.n_heads + 2 * cfg.kv_heads) * hd \
-        + cfg.n_heads * hd * cfg.d_model
-    mlp = (3 if cfg.mlp_type == "swiglu" else 2) * cfg.d_model * cfg.d_ff
-    head = 0 if cfg.tie_embeddings else cfg.d_model * cfg.vocab
-    tokens = n_agents * batch * seq
-    fwd = 2 * (cfg.n_layers * (attn + mlp) + head) * tokens
-    fwd += (cfg.n_layers * 4 * cfg.n_heads * hd * (seq * (seq + 1) // 2)
-            * n_agents * batch)
-    return 3 * fwd
+    backward, 3x the forward) over all agents, 2 per multiply-add of every
+    product the model forms.  Per token: every matmul weight of its blocks
+    (q, k, v, o; the swiglu or gelu MLP; an MoE's router; mLSTM's up, gate,
+    per-head q, k, v, gate and down projections; sLSTM's input, recurrent
+    and FFN weights; RG-LRU's five) and an untied head (the embedding is a
+    gather, not a matmul).  Attention: 2 n_heads head_dim per visible key
+    (causal: seq (seq + 1) / 2 keys a sequence; local: at most window + 1 a
+    query).  An MoE's experts over all E x C slots of each agent's dispatch
+    buffer, kept or not (C from the agent's batch x seq tokens).  mLSTM's
+    chunks: 2 G^2 hd + 2 G hd^2 per head and chunk.  Cross-attention (vlm
+    every cross_attn_every layers, audio after every decoder layer): q and
+    o per token, k and v per memory row, 2 n_heads head_dim per (token,
+    memory row).  The audio encoder: its layers over the frames, their
+    attention bidirectional."""
+    from repro_torch.models.moe import capacity
+
+    d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.kv_heads
+    seqs = n_agents * batch
+    tokens = seqs * seq
+    qkvo = d * (nq + 2 * nkv) * hd + nq * hd * d
+    mlp = (3 if cfg.mlp_type == "swiglu" else 2) * d * cfg.d_ff
+    causal_keys = seq * (seq + 1) // 2
+    macs = 0
+    for t in cfg.layer_types():
+        if t in ("attn", "local", "global"):
+            keys = (causal_keys if t != "local" else
+                    sum(min(i + 1, cfg.window + 1) for i in range(seq)))
+            macs += qkvo * tokens + 2 * nq * hd * keys * seqs
+            if cfg.n_experts:
+                C = capacity(batch * seq, cfg.top_k, cfg.n_experts,
+                             cfg.capacity_factor)
+                macs += d * cfg.n_experts * tokens
+                macs += 3 * d * cfg.d_ff * cfg.n_experts * C * n_agents
+            else:
+                macs += mlp * tokens
+        elif t == "mlstm":
+            di = 2 * d
+            hdm = di // nq
+            G = min(128, seq)
+            while seq % G:
+                G -= 1
+            macs += (3 * d * di + 3 * di * hdm + 2 * nq * di) * tokens
+            macs += (seq // G) * nq * (2 * G * G * hdm + 2 * G * hdm * hdm) \
+                * seqs
+        elif t == "slstm":
+            macs += (4 * d * d + 4 * d * (d // nq) + 2 * d * (4 * d // 3)) \
+                * tokens
+        elif t == "rglru":
+            macs += (5 * d * d + mlp) * tokens
+    if cfg.cross_attn_every or cfg.encoder_layers:
+        M = cfg.vis_tokens if cfg.cross_attn_every else cfg.n_audio_frames
+        n_cross = (cfg.n_layers // cfg.cross_attn_every
+                   if cfg.cross_attn_every else cfg.n_layers)
+        macs += n_cross * (2 * d * nq * hd * tokens
+                           + 2 * d * nkv * hd * M * seqs
+                           + 2 * nq * hd * M * tokens)
+    if cfg.encoder_layers:
+        F = cfg.n_audio_frames
+        macs += cfg.encoder_layers * (qkvo + mlp + 2 * nq * hd * F) * F * seqs
+    if not cfg.tie_embeddings:
+        macs += d * cfg.vocab * tokens
+    return 3 * 2 * macs
 
 
 def _tree_to(tree, device):
@@ -1936,56 +2041,159 @@ class CodeSpy:
         self._cls.encode_blocks = self._orig
 
 
-def phase_train_small(dev):
-    """The trainer on the card against the CPU: granite-3-2b reduced (d_ff
-    341, so leaves are padded to whole blocks), 4 agents on ring(4), batch
-    2 x seq 32, the same weights and batches on both.  Uncompressed LEAD
-    (K3, no quantizer) and NIDS over TRAIN_SMALL_STEPS steps: params, each
-    agent's loss and grad_norm within TRAIN_RTOL of the CPU's.  LEAD on 2
-    bits, one step from the same state and batch: the share of codes that
-    differ below TRAIN_CODE_FRAC, the bits the CPU's exactly."""
+class RouteSpy:
+    """Records the (expert ids, keep) of every MoE routing
+    (models/moe.route) made inside its with block, on the device, in call
+    order: to hold one device's routing against another's, and to count
+    the dropped pairs and the experts' loads."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._mod, self._orig = [], moe, moe.route
+        spy = self
+
+        def route(p, xt, top_k, capacity_factor):
+            out = spy._orig(p, xt, top_k, capacity_factor)
+            spy.calls.append((out[2].detach(), out[4].detach(), out[5]))
+            return out
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.route = self._orig
+
+    def flips(self, other):
+        """Tokens whose experts differ between this run's calls and
+        `other`'s (same calls in the same order)."""
+        check(len(self.calls) == len(other.calls),
+              f"{len(self.calls)} routings against {len(other.calls)}")
+        return sum(int((a.cpu() != b.cpu()).any(-1).sum())
+                   for (a, _, _), (b, _, _) in zip(self.calls, other.calls))
+
+    def load(self, n_experts):
+        """(share of (token, choice) pairs dropped, the heaviest expert's
+        pairs over the balanced load T k / E, before capacity; the
+        capacity over the balanced load)."""
+        dropped = sum(int((~keep).sum()) for _, keep, _ in self.calls)
+        pairs = sum(keep.numel() for _, keep, _ in self.calls)
+        heavy, cap = 0.0, 0.0
+        for ids, keep, C in self.calls:
+            per = torch.bincount(ids.reshape(-1), minlength=n_experts)
+            balanced = ids.numel() / n_experts
+            heavy = max(heavy, float(per.max()) / balanced)
+            cap = C / balanced
+        return dropped / pairs, heavy, cap
+
+
+def _train_batches(cfg, ds, steps, device, start=0):
+    """lm_batch of each step on `device`, with the vlm's or audio model's
+    stub memory (the same every step, as the reference CLI's)."""
+    from repro_torch.data.synthetic import lm_batch, stub_memory
+
+    memory = stub_memory(cfg.family, (ds.n_agents, ds.batch_per_agent), cfg,
+                         device=device)
+    out = []
+    for i in range(start, start + steps):
+        b = lm_batch(ds, i, device=device)
+        if memory is not None:
+            b["memory"] = memory
+        out.append(b)
+    return out
+
+
+def train_small_arch(dev, arch, kw, restart):
+    """One arch of train_small: `arch` at .reduced(**kw), 4 agents on
+    ring(4), batch 2 x seq 32, the same weights and batches (and stub
+    memory) on the card and the CPU.  Uncompressed LEAD (K3, no
+    quantizer) and NIDS over TRAIN_SMALL_STEPS steps (with `restart`, each
+    card step from the CPU's state before it, the params against the
+    state's largest |x|): params, each agent's loss and grad_norm within
+    TRAIN_RTOL of the CPU's.  LEAD on 2 bits, one
+    step from the same state and batch: the share of codes that differ
+    below TRAIN_CODE_FRAC, the bits the CPU's exactly.  An MoE's routing is
+    recorded on both: the tokens whose experts differ (a near-tie of the
+    router's probabilities) are counted; the bounds are then held on the
+    steps before the first such flip (all of them when there is none)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.compression import Identity
-    from repro_torch.data.synthetic import LMStreamConfig, lm_batch
+    from repro_torch.data.synthetic import LMStreamConfig
     from repro_torch.dist.trainer import (DistConfig, agent_losses,
                                           init_train_state, make_train_step)
     from repro_torch.utils.tree import tree_leaves
 
-    cfg = get_config("granite-3-2b").reduced()
+    cfg = get_config(arch).reduced(**kw)
     A = TRAIN_AGENTS
     ds = LMStreamConfig(vocab=cfg.vocab, seq_len=32, batch_per_agent=2,
                         n_agents=A)
-    batches = [lm_batch(ds, i, device="cpu")
-               for i in range(TRAIN_SMALL_STEPS)]
-    out = {"arch": cfg.name, "d_ff": cfg.d_ff, "n_agents": A}
+    batches = _train_batches(cfg, ds, TRAIN_SMALL_STEPS, "cpu")
+    out = {"arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
+           "d_ff": cfg.d_ff, "n_agents": A, "restart": restart}
+    flips_total = 0
     for name, dc in (("lead_uncompressed",
                       DistConfig(algorithm="lead", compressor=Identity())),
                      ("nids", DistConfig(algorithm="nids"))):
         st0 = init_train_state(cfg, A, dc, torch.Generator().manual_seed(0),
                                "cpu")
-        res = {}
+        res, cpu_states = {}, [st0]
         for device in ("cpu", dev):
             st = _state_to(st0, device)
             step = make_train_step(cfg, A, dc, device)
-            norms = []
-            for i, b in enumerate(batches):
-                st, m = step(st, _tree_to(b, device), 0, step=i)
-                norms.append(m["grad_norm"])
-            res[device] = (st, torch.stack(norms).cpu().double(),
-                           agent_losses(cfg, st.params,
-                                        _tree_to(batches[-1], device))
-                           .cpu().double())
-        (cs, cn, cl), (gs, gn, gl) = res["cpu"], res[dev]
-        params_gap = max(max_abs(g.cpu(), c) / float(c.abs().max())
-                         for g, c in zip(tree_leaves(gs.params),
-                                         tree_leaves(cs.params)))
-        loss_gap = float(((gl - cl).abs() / cl.abs()).max())
-        norm_gap = float(((gn - cn).abs() / cn.abs()).max())
-        out[name] = {"params_rel": params_gap, "loss_rel": loss_gap,
-                     "grad_norm_rel": norm_gap,
-                     "loss": [float(cl.mean()), float(gl.mean())]}
-        check(max(params_gap, loss_gap, norm_gap) <= TRAIN_RTOL,
-              f"train_small {name}: card vs CPU {out[name]}")
+            per_step = []
+            with RouteSpy() as spy:
+                for i, b in enumerate(batches):
+                    if restart and device != "cpu":
+                        st = _state_to(cpu_states[i], device)
+                    st, m = step(st, _tree_to(b, device), 0, step=i)
+                    if device == "cpu":
+                        cpu_states.append(st)
+                    n_calls = len(spy.calls)
+                    losses = agent_losses(cfg, st.params,
+                                          _tree_to(batches[-1], device))
+                    del spy.calls[n_calls:]    # the loss's routings
+                    per_step.append((
+                        [l.cpu() for l in tree_leaves(st.params)],
+                        float(m["grad_norm"]), losses.cpu().double(),
+                        n_calls))
+            res[device] = (per_step, spy)
+        (cpu_steps, cspy), (card_steps, gspy) = res["cpu"], res[dev]
+        # the steps whose routing agrees with the CPU's, from the start
+        held = len(cpu_steps)
+        flips = 0
+        if cfg.n_experts:
+            flips = gspy.flips(cspy)
+            for i, (_, _, _, n_calls) in enumerate(cpu_steps):
+                calls = slice(0, n_calls)
+                agree = all(torch.equal(a.cpu(), b.cpu()) for (a, _, _), (
+                    b, _, _) in zip(gspy.calls[calls], cspy.calls[calls]))
+                if not agree:
+                    held = i
+                    break
+        flips_total += flips
+        gaps = {"params_rel": 0.0, "loss_rel": 0.0, "grad_norm_rel": 0.0}
+        for (cx, cn, cl, _), (gx, gn, gl, _) in zip(cpu_steps[:held],
+                                                    card_steps[:held]):
+            # each leaf against its own largest |x|; with restart against
+            # the state's (the CPU parity tests' scale): there a step moves
+            # a leaf by several times its size
+            state_scale = max(float(c.abs().max()) for c in cx)
+            gaps["params_rel"] = max(gaps["params_rel"], max(
+                max_abs(g, c) / (state_scale if restart
+                                 else float(c.abs().max()))
+                for g, c in zip(gx, cx)))
+            gaps["loss_rel"] = max(gaps["loss_rel"],
+                                   float(((gl - cl).abs() / cl.abs()).max()))
+            gaps["grad_norm_rel"] = max(gaps["grad_norm_rel"],
+                                        abs(gn - cn) / abs(cn))
+        out[name] = {**gaps, "steps_held": held, "routing_flips": flips,
+                     "loss": [float(cpu_steps[-1][2].mean()),
+                              float(card_steps[-1][2].mean())]}
+        check(max(gaps.values()) <= TRAIN_RTOL,
+              f"train_small {cfg.name} {name}: card vs CPU {out[name]}")
+        routed = sum(ids.shape[0] for ids, _, _ in cspy.calls)
+        check(flips <= 0.01 * routed, f"train_small {cfg.name} {name}: "
+              f"{flips} of {routed} routed tokens flip")
 
     dc = DistConfig(algorithm="lead")
     st0 = init_train_state(cfg, A, dc, torch.Generator().manual_seed(0),
@@ -1993,52 +2201,77 @@ def phase_train_small(dev):
     spied = {}
     for device in ("cpu", dev):
         step = make_train_step(cfg, A, dc, device)
-        with CodeSpy() as spy:
+        with CodeSpy() as spy, RouteSpy() as rspy:
             _, m = step(_state_to(st0, device), _tree_to(batches[0], device),
                         0, step=0)
-        spied[device] = (spy.codes, float(m["bits_per_agent"]))
-    (cc, cb), (gc, gb) = spied["cpu"], spied[dev]
+        spied[device] = (spy.codes, float(m["bits_per_agent"]), rspy)
+    (cc, cb, crs), (gc, gb, grs) = spied["cpu"], spied[dev]
     differ = sum(int((a != b).sum()) for a, b in zip(gc, cc))
     total = sum(a.numel() for a in cc)
+    flips = grs.flips(crs) if cfg.n_experts else 0
     out["lead_2bit"] = {"codes_differing": differ, "codes": total,
-                        "share": differ / total, "bits_per_agent": gb}
+                        "share": differ / total, "bits_per_agent": gb,
+                        "routing_flips": flips}
     check(len(gc) == len(cc) == len(tree_leaves(st0.params)),
-          f"train_small lead_2bit: {len(gc)} encodes, {len(cc)} on the CPU")
-    check(differ / total < TRAIN_CODE_FRAC,
-          f"train_small lead_2bit: {differ} of {total} codes differ")
-    check(gb == cb, f"train_small lead_2bit: bits {gb}, the CPU's {cb}")
+          f"train_small {cfg.name} lead_2bit: {len(gc)} encodes, {len(cc)} "
+          "on the CPU")
+    check(flips > 0 or differ / total < TRAIN_CODE_FRAC,
+          f"train_small {cfg.name} lead_2bit: {differ} of {total} codes "
+          "differ")
+    check(gb == cb, f"train_small {cfg.name} lead_2bit: bits {gb}, the "
+          f"CPU's {cb}")
+    out["routing_flips"] = flips_total + flips
     emit({"phase": "train_small", **out})
     return out
 
 
-def phase_train_at_scale(dev, smi, flops):
-    """The trainer at granite-3-2b's published width (d_model 2048, 32
-    query and 8 KV heads, head_dim 64, d_ff 8192, vocab 49,155), depth cut
-    to TRAIN_LAYERS: 4 agents x 322,983,936 parameters on ring(4), LEAD on
-    the 2-bit p=inf wire in blocks of 512, SGD at eta 0.03, the
-    heterogeneous stream at batch 2 x seq 128, seed 0.  One warm-up step,
-    then TRAIN_STEPS timed: launches per step K4 = K2 = K3 = 12 (one per
-    leaf) and K1 = K5 = K6 = 0; the bits exactly TRAIN_BITS every step; the
-    mean loss over agents on batch 0 below its value at step 0; the dual
-    sum below TRAIN_DUAL_SUM on every leaf; everything finite.  Prints
-    ms/step by the host clock, the stage sums of two more steps
-    (core/stage_timer.py), the gradient's operations and its rate against
-    the card's fp32 peak `flops`, the peak allocated and `smi`."""
+def phase_train_small(dev):
+    """The trainer on the card against the CPU for every family at
+    .reduced() size (TRAIN_SMALL_ARCHS): granite-3-2b (d_ff 341, so leaves
+    are padded to whole blocks), the MoE archs, xLSTM at 6 layers (the
+    sLSTM block; each card step from the CPU's state), RecurrentGemma at
+    3 (its local attention), the vlm and the audio model with their stub
+    memory; one line each."""
+    return {arch: train_small_arch(dev, arch, kw, restart)
+            for arch, kw, restart in TRAIN_SMALL_ARCHS}
+
+
+def phase_train_at_scale(dev, smi, flops, what):
+    """The trainer at scale, TRAIN_AT_SCALE[what]: the arch at its published
+    width, depth cut to the spec's n_layers, its agents on a ring, LEAD on
+    the 2-bit p=inf wire in blocks of 512, the spec's optimizer and eta
+    (SGD at 0.03 but for xLSTM), the heterogeneous stream at batch 2 x seq
+    128 (and the stub memory of a vlm or audio model), seed 0.  One warm-up
+    step, then TRAIN_STEPS timed: launches per step K4 = K2 = K3 = one per
+    leaf and K1 = K5 = K6 = 0; the leaves, parameters and bits exactly the
+    spec's (the bits every step); the mean loss over agents on batch 0
+    below its value at step 0; the dual sum below TRAIN_DUAL_SUM (x 0.03 /
+    eta) on every leaf; everything finite; peak allocated below
+    TRAIN_PEAK_GB.  Prints ms/step by the host clock, the
+    stage sums of two more steps (core/stage_timer.py; each stage summed
+    over its per-leaf marks), the gradient's operations
+    (train_gradient_flop) and its rate against the card's fp32 peak
+    `flops`, the peak allocated and `smi`; for an MoE the routing of batch
+    0 on the final weights (pairs dropped, the heaviest expert's load)."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
     from repro_torch.core.stage_timer import StageTimer
-    from repro_torch.data.synthetic import LMStreamConfig, lm_batch
+    from repro_torch.data.synthetic import LMStreamConfig
     from repro_torch.dist.trainer import (DistConfig, agent_losses,
                                           init_train_state, make_train_step)
     from repro_torch.kernels import cuda_lib
+    from repro_torch.optim.optimizers import make_optimizer
     from repro_torch.utils.tree import tree_leaves
 
-    what = "train_at_scale"
-    cfg = dataclasses.replace(get_config("granite-3-2b"),
-                              n_layers=TRAIN_LAYERS)
-    A = TRAIN_AGENTS
-    dc = DistConfig(algorithm="lead", hyper={"eta": 0.03})
+    spec = TRAIN_AT_SCALE[what]
+    cfg = get_config(spec["arch"])
+    if spec["n_layers"] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    A, n_leaves = spec["agents"], spec["leaves"]
+    dc = DistConfig(algorithm="lead", hyper={"eta": spec["eta"]},
+                    optimizer=make_optimizer(spec["optimizer"]))
+    dual_bound = TRAIN_DUAL_SUM * TRAIN_ETA / spec["eta"]
     ds = LMStreamConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                         batch_per_agent=TRAIN_BATCH, n_agents=A, seed=0)
     torch.cuda.empty_cache()
@@ -2047,15 +2280,16 @@ def phase_train_at_scale(dev, smi, flops):
     state = init_train_state(cfg, A, dc, torch.Generator(dev).manual_seed(0),
                              dev)
     leaves = tree_leaves(state.params)
-    check(len(leaves) == 12 and sum(l[0].numel() for l in leaves)
-          == TRAIN_PARAMS, f"{what}: {len(leaves)} leaves")
+    n_params = sum(l[0].numel() for l in leaves)
+    check(len(leaves) == n_leaves and n_params == spec["params"],
+          f"{what}: {len(leaves)} leaves, {n_params} parameters")
     step = make_train_step(cfg, A, dc, dev)
-    b0 = lm_batch(ds, 0, device=dev)
+    b0 = _train_batches(cfg, ds, 1, dev)[0]
     loss0 = float(agent_losses(cfg, state.params, b0).mean())
     state, _ = step(state, b0, 0, step=0)                  # warm-up step
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    batches = [lm_batch(ds, i, device=dev) for i in range(1, TRAIN_STEPS + 1)]
+    batches = _train_batches(cfg, ds, TRAIN_STEPS, dev, start=1)
     torch.cuda.synchronize()
     cuda_lib.reset_launch_counts()
     retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
@@ -2078,27 +2312,35 @@ def phase_train_at_scale(dev, smi, flops):
     device_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
-    expect_launches(launches, {"quantize_encode": 12 * TRAIN_STEPS,
-                               "quantize_decode": 12 * TRAIN_STEPS,
-                               "lead_update": 12 * TRAIN_STEPS}, what)
+    expect_launches(launches, {"quantize_encode": n_leaves * TRAIN_STEPS,
+                               "quantize_decode": n_leaves * TRAIN_STEPS,
+                               "lead_update": n_leaves * TRAIN_STEPS}, what)
     bits = torch.stack([m["bits_per_agent"] for m in metrics]).cpu()
     norms = torch.stack([m["grad_norm"] for m in metrics]).cpu()
-    check(bool((bits == TRAIN_BITS).all()), f"{what}: bits {bits.tolist()}")
+    check(bool((bits == spec["bits"]).all()), f"{what}: bits {bits.tolist()}")
     finite = all(bool(torch.isfinite(l).all())
                  for t in (state.params, *state.algo.values())
                  for l in tree_leaves(t))
     check(finite and bool(torch.isfinite(norms).all()),
           f"{what}: non-finite state or grad_norm")
-    loss1 = float(agent_losses(cfg, state.params, b0).mean())
+    routing = {}
+    with RouteSpy() as spy:
+        loss1 = float(agent_losses(cfg, state.params, b0).mean())
+    if cfg.n_experts:
+        dropped, heavy, cap = spy.load(cfg.n_experts)
+        routing = {"routing": {"capacity": spy.calls[0][2],
+                               "dropped_share": dropped,
+                               "heaviest_expert_load": heavy,
+                               "capacity_over_balanced": cap,
+                               "routings": len(spy.calls)}}
     check(loss1 < loss0, f"{what}: loss {loss0} -> {loss1}")
     dual = [float(l.sum(0).abs().max()) for l in tree_leaves(state.algo["d"])]
-    check(max(dual) < TRAIN_DUAL_SUM, f"{what}: dual sum {dual}")
+    check(max(dual) < dual_bound, f"{what}: dual sum {max(dual)}")
     check(peak / 1e9 < TRAIN_PEAK_GB, f"{what}: peak {peak / 1e9} GB")
 
     # stage sums of two more steps, each stage summed over its marks (one
     # per leaf) and averaged over the steps
-    extra = [lm_batch(ds, i, device=dev)
-             for i in range(TRAIN_STEPS + 1, TRAIN_STEPS + 3)]
+    extra = _train_batches(cfg, ds, 2, dev, start=TRAIN_STEPS + 1)
     torch.cuda.synchronize()
     with StageTimer(dev) as timer:
         for i, b in enumerate(extra, start=TRAIN_STEPS + 1):
@@ -2110,13 +2352,17 @@ def phase_train_at_scale(dev, smi, flops):
         marks[key] = marks.get(key, 0) + 1 / len(extra)
     check(set(acc) == set(TRAIN_STAGES.values()), f"{what}: stages "
           f"{sorted(acc)}")
-    gb_plane = A * TRAIN_PARAMS * 4 / 1e9
+    gb_plane = A * n_params * 4 / 1e9
     grad_flop = train_gradient_flop(cfg, A, TRAIN_BATCH, TRAIN_SEQ)
     grad_rate = grad_flop / (acc["gradient"] * 1e-3)
     emit({"phase": what, "arch": cfg.name, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.kv_heads],
           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
-          "n_agents": A, "params_per_agent": TRAIN_PARAMS,
+          "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+          "block_pattern": list(cfg.block_pattern),
+          "encoder_layers": cfg.encoder_layers,
+          "n_agents": A, "optimizer": spec["optimizer"], "eta": spec["eta"],
+          "params_per_agent": n_params,
           "leaves": len(leaves), "batch": [TRAIN_BATCH, TRAIN_SEQ],
           "steps": TRAIN_STEPS, "nvidia_smi": smi,
           "ms_per_step": wall * 1e3 / TRAIN_STEPS,
@@ -2131,10 +2377,11 @@ def phase_train_at_scale(dev, smi, flops):
           "f32_plane_GB": gb_plane, "setup_s": setup_s,
           "launches": launches, "launches_per_step": per_step,
           "bits_per_agent": float(bits[0]),
-          "bits_ratio_vs_f32": 32.0 * TRAIN_PARAMS / float(bits[0]),
+          "bits_ratio_vs_f32": 32.0 * n_params / float(bits[0]),
           "loss": [loss0, loss1], "grad_norm": [float(norms[0]),
                                                 float(norms[-1])],
-          "dual_sum_max": max(dual)})
+          "dual_sum_max": max(dual), "dual_sum_bound": dual_bound,
+          **routing})
     del state, step, batches, extra, metrics
     torch.cuda.empty_cache()
     return launches
@@ -2179,7 +2426,8 @@ def main():
                  for phase in NEW_PATHS}
     multiwire = phase_multiwire_at_scale(dev, lead_trace, smi)
     phase_train_small(dev)
-    train = phase_train_at_scale(dev, smi, flops)
+    train = {what: phase_train_at_scale(dev, smi, flops, what)
+             for what in TRAIN_AT_SCALE}
     # launches: each kernel's count on its path at the real size (LEAD's for
     # K1-K3, CHOCO's wire for K4-K6), each path run with the counts at 0
     at_scale = {"quantize_encode": baselines["pinf_2bit"],
@@ -2201,7 +2449,7 @@ def main():
                for w, v in runs.items()},
             **{f"multiwire_at_scale/{w}": v[k]
                for w, v in multiwire.items()},
-            "train_at_scale": train[k]}
+            **{what: v[k] for what, v in train.items()}}
         if k in hot_path:
             r["hot_path_512"] = hot_path[k]
     print(smi, flush=True)

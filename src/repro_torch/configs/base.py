@@ -138,8 +138,7 @@ class ModelConfig:
     # -- parameter counting (for roofline MODEL_FLOPS = 6 N D) --------------
     def param_count(self) -> int:
         """Exact: the port's own init_params on the ``meta`` device (shapes
-        only, no allocation).  Families the port does not model yet raise
-        NotImplementedError there (see ROADMAP.md)."""
+        only, no allocation)."""
         from repro_torch.models import transformer as _tfm
         from repro_torch.utils.tree import tree_leaves
         params = _tfm.init_params(self, device="meta")

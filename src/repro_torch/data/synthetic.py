@@ -22,7 +22,8 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core.compression import counter_bits, sub_seed
+from repro_torch.core.compression import (counter_bits, fast_normal,
+                                          sub_seed)
 from repro_torch.device import DeviceLike, resolve_device
 
 _PREF = 0.8                      # share of tokens from the preferred block
@@ -72,11 +73,22 @@ def lm_batch(cfg: LMStreamConfig, step: int, agent: Optional[int] = None,
     return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
 
 
-def stub_memory(family: str, batch_shape, cfg, seed: int = 0):
-    """Pre-computed modality embeddings: None for the text families; the
-    vlm and audio stubs come with those families (ROADMAP.md)."""
-    if family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"the {family} memory stub is not ported to repro_torch yet "
-            "(see ROADMAP.md, queue 1)")
-    return None
+def stub_memory(family: str, batch_shape, cfg, seed: int = 0,
+                device: DeviceLike = None):
+    """Pre-computed modality embeddings (the one allowed stub): vision patch
+    embeddings for a vlm (M = cfg.vis_tokens), frame embeddings for audio
+    (M = cfg.n_audio_frames), 0.02 N(0, 1) f32 of shape (*batch_shape, M,
+    d_model) on `device` ("cuda" when None); None for the other families.
+
+    The reference draws from threefry, which torch cannot reproduce: the
+    normals here come from the counter hash (``fast_normal`` seeded with
+    `seed`), so the two stubs agree in distribution only; the parity tests
+    hand both packages the reference's memory."""
+    if family == "vlm":
+        M = cfg.vis_tokens
+    elif family == "audio":
+        M = cfg.n_audio_frames
+    else:
+        return None
+    shape = (*batch_shape, M, cfg.d_model)
+    return 0.02 * fast_normal(shape, seed, resolve_device(device))

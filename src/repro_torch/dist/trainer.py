@@ -284,8 +284,9 @@ def init_train_state(cfg, n_agents: int, dc: DistConfig,
 
 
 def agent_losses(cfg, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Each agent's loss on its own batch, (A,), without gradients (the
-    reference CLI's vmapped ``loss_fn``)."""
+    """Each agent's loss on its own batch (tokens, labels and, for vlm and
+    audio, memory), (A,), without gradients (the reference CLI's vmapped
+    ``loss_fn``)."""
     with torch.no_grad():
         return torch.stack([
             tfm.loss_fn(tree_map(lambda l, a=a: l[a], params), cfg,
@@ -355,9 +356,11 @@ def make_train_step(cfg, n_agents: int, dc: DistConfig,
                     device: DeviceLike = None):
     """Returns step(state, batch, seed, step=None) -> (state, metrics).
 
-    batch: {tokens, labels} with leading (A, B_local, ...) dims on the
-    device; seed: the run's dither seed (a host int); step: the host step
-    counter (== state.step; read off the device when None).  metrics:
+    batch: {tokens, labels[, memory]} with leading (A, B_local, ...) dims
+    on the device (memory: the vlm's or audio model's (A, B_local, M, d)
+    stub embeddings; every key follows its agent and microbatch); seed:
+    the run's dither seed (a host int); step: the host step counter (==
+    state.step; read off the device when None).  metrics:
     grad_norm and, for decentralized algorithms, bits_per_agent (the
     payload bits this step put on the wire, summed over leaves and wires;
     leader-lane bits on hierarchical graphs, 0.0 on an interval's skipped
@@ -408,7 +411,9 @@ def make_train_step(cfg, n_agents: int, dc: DistConfig,
         """Per-agent gradients of the stacked params: the agents' losses
         summed (they share no parameter, so the sum's gradient is each
         agent's own), one backward per microbatch, accumulated in order
-        and averaged as the reference's scan does."""
+        and averaged as the reference's scan does.  Each agent's loss sees
+        only its own tokens (an MoE's capacity is per agent, as under the
+        reference's vmap)."""
         leaves, treedef = tree_flatten(params)
         xs = [l.detach().requires_grad_() for l in leaves]
         p = tree_unflatten(treedef, xs)

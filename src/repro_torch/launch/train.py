@@ -6,6 +6,11 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --reduced --mesh-shape 4,1 --device cpu
 
+    # any registry arch: MoE, xLSTM, RG-LRU, vlm and audio too (the vlm
+    # and audio batches carry data/synthetic.stub_memory's embeddings):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \
+        --reduced --mesh-shape 4,1 --device cpu
+
     # the same on the card (the default device):
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --reduced --mesh-shape 4,1
@@ -25,7 +30,8 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.core import topology
 from repro_torch.core.engines import ENGINES, describe
-from repro_torch.data.synthetic import LMStreamConfig, lm_batch
+from repro_torch.data.synthetic import (LMStreamConfig, lm_batch,
+                                        stub_memory)
 from repro_torch.device import resolve_device
 from repro_torch.dist.trainer import (DistConfig, agent_losses, engine_of,
                                       init_train_state, make_train_step)
@@ -113,9 +119,15 @@ def main(argv=None):
                         batch_per_agent=args.batch_per_agent, n_agents=A,
                         heterogeneous=args.heterogeneous)
 
+    # the modality stub is the same every step (seed 0), as the reference's
+    memory = stub_memory(cfg.family, (A, args.batch_per_agent), cfg,
+                         device=dev)
+
     t0 = time.time()
     for i in range(args.steps):
         batch = lm_batch(ds, i, device=dev)
+        if memory is not None:
+            batch["memory"] = memory
         state, metrics = step_fn(state, batch, 0, step=i)
         if (i + 1) % args.log_every == 0 or i == 0:
             loss = float(agent_losses(cfg, state.params, batch).mean())

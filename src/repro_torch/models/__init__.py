@@ -1,7 +1,8 @@
-"""Model zoo, the dense attention families (dense / local:global) of the
-reference's block-stack model - see transformer.py for what is ported."""
-from repro_torch.models import attention, transformer
+"""Model zoo: the reference's block-stack model for every family (dense,
+local:global, MoE, xLSTM, RG-LRU hybrid, vlm, audio), training path - see
+transformer.py for what is ported."""
+from repro_torch.models import attention, moe, recurrent, transformer
 from repro_torch.models.transformer import (
-    decode_step, forward, init_cache, init_params, loss_fn, prefill,
-    prefill_chunk,
+    decode_step, encode_audio, forward, init_cache, init_params, loss_fn,
+    prefill, prefill_chunk,
 )

@@ -12,9 +12,11 @@ chunking, so the same sums are formed in the same groups:
   query chunk, so sliding-window layers cost O(S * (window + chunk)).
 
 GQA: kv heads are broadcast over their group of query heads inside the
-einsums.  The decode side (``KVCache``, ``decode_attention``,
-``update_cache``, ``chunk_attention``, ``init_cache``) and
-``cross_attention`` come with serving (ROADMAP.md).
+einsums.  ``cross_attention`` is full (non-causal) attention to a fixed
+memory: the vlm's gated cross-attention, the audio encoder's bidirectional
+self-attention and its decoder's cross-attention.  The decode side
+(``KVCache``, ``decode_attention``, ``update_cache``, ``chunk_attention``,
+``init_cache``) comes with serving (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -134,3 +136,15 @@ def windowed_attention(q, k, v, *, window: int,
         p = torch.softmax(s, dim=-1)
         outs.append(_gqa_values(p, v_blk))                    # (B, c, nq, hd)
     return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def cross_attention(q, mem_k, mem_v) -> torch.Tensor:
+    """Full (non-causal) attention of q: (B, Sq, nq, hd) to a fixed memory
+    mem_k, mem_v: (B, M, nkv, hd); the result in q's dtype.  Operands of
+    two dtypes (a bf16 query against an f32 memory) are promoted, as JAX
+    promotes them."""
+    dt = torch.promote_types(q.dtype, mem_k.dtype)
+    scale = q.shape[-1] ** -0.5
+    s = _gqa_scores(q.to(dt), mem_k.to(dt)) * scale
+    p = torch.softmax(s, dim=-1)
+    return _gqa_values(p, mem_v.to(dt)).to(q.dtype)

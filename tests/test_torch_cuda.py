@@ -838,3 +838,121 @@ def test_trainer_step_makes_no_per_step_sync(cuda_device, case):
                 if "called a synchronizing CUDA operation" in str(w.message)]
 
     assert syncs(4, st) == syncs(2, st)
+
+
+# -- the trainer on every model family -------------------------------------------
+
+FAMILY_ARCHS = {"granite-moe-1b-a400m": {}, "kimi-k2-1t-a32b": {},
+                "xlstm-1.3b": {"n_layers": 6},
+                "recurrentgemma-2b": {"n_layers": 3},
+                "llama-3.2-vision-11b": {}, "whisper-tiny": {}}
+
+
+def _family_setup(arch, dc_kwargs):
+    """`arch` at .reduced(**FAMILY_ARCHS[arch]), 4 agents, the state on the
+    CPU from a seeded generator; batch(i, dev) the 2 x 32 batch of step i
+    with the stub memory of a vlm or audio model."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import (LMStreamConfig, lm_batch,
+                                            stub_memory)
+    from repro_torch.dist.trainer import DistConfig, init_train_state
+
+    cfg = get_config(arch).reduced(**FAMILY_ARCHS[arch])
+    dc = DistConfig(**dc_kwargs)
+    state = init_train_state(cfg, 4, dc, torch.Generator().manual_seed(0),
+                             "cpu")
+    ds = LMStreamConfig(vocab=cfg.vocab, seq_len=32, batch_per_agent=2,
+                        n_agents=4)
+    memory = stub_memory(cfg.family, (4, 2), cfg, device="cpu")
+
+    def batch(i, dev):
+        b = lm_batch(ds, i, device="cpu")
+        if memory is not None:
+            b["memory"] = memory
+        return _tree_on(b, dev)
+
+    return cfg, dc, state, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(FAMILY_ARCHS))
+def test_family_trainer_on_the_card_matches_the_cpu(cuda_device, arch):
+    """Uncompressed LEAD (K3) over 3 steps of each family from the same
+    weights on the same batches: params, each agent's loss and grad_norm
+    within 1e-4 relative of the CPU's, as train_small holds them (xLSTM
+    each step from the CPU's state before it, its params against the
+    state's largest |x|: its step at eta 0.03 amplifies a rounding
+    difference 15-90x a step and moves the embedding by several times its
+    size).  An MoE routes every
+    token as the CPU does (a near-tie of the router's probabilities could
+    swap experts; the count is in the message)."""
+    from repro_torch.dist.trainer import agent_losses, make_train_step
+    from repro_torch.models import moe
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg, dc, state, batch = _family_setup(
+        arch, {"algorithm": "lead", "compressor": Identity()})
+    res, routes, cpu_states = {}, {}, [state]
+    restart = arch == "xlstm-1.3b"
+    orig = moe.route
+    for dev in ("cpu", cuda_device):
+        seen = []
+
+        def spy(p, xt, top_k, capacity_factor):
+            out = orig(p, xt, top_k, capacity_factor)
+            seen.append(out[2].cpu())
+            return out
+
+        moe.route = spy
+        try:
+            st = _state_on(state, dev)
+            step = make_train_step(cfg, 4, dc, dev)
+            norms = []
+            for i in range(3):
+                if restart and dev != "cpu":
+                    st = _state_on(cpu_states[i], dev)
+                st, m = step(st, batch(i, dev), 0, step=i)
+                if dev == "cpu":
+                    cpu_states.append(st)
+                norms.append(float(m["grad_norm"]))
+            losses = agent_losses(cfg, st.params, batch(2, dev)).cpu()
+        finally:
+            moe.route = orig
+        res[str(dev)] = (tree_leaves(st.params), np.array(norms),
+                         losses.numpy())
+        routes[str(dev)] = seen
+    flips = sum(int((a != b).any(-1).sum()) for a, b in
+                zip(routes["cpu"], routes[str(cuda_device)]))
+    assert flips == 0, f"{flips} tokens route differently"
+    (cx, cn, cl), (gx, gn, gl) = res["cpu"], res[str(cuda_device)]
+    state_scale = max(float(b.abs().max()) for b in cx)
+    for a, b in zip(gx, cx):
+        scale = state_scale if restart else float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
+    np.testing.assert_allclose(gn, cn, rtol=1e-4)
+    np.testing.assert_allclose(gl, cl, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(FAMILY_ARCHS))
+def test_family_trainer_step_launches_its_kernels(cuda_device, arch):
+    """One 2-bit LEAD step of each family: K4, K2 and K3 once per leaf
+    (sub-block leaves, the 0-d gates and whisper's 51,865 x 384 embedding
+    included), K1, K5 and K6 never; the bits the CPU's exactly."""
+    from repro_torch.dist.trainer import make_train_step
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg, dc, state, batch = _family_setup(arch, {"algorithm": "lead"})
+    n = len(tree_leaves(state.params))
+    step = make_train_step(cfg, 4, dc, cuda_device)
+    st = _state_on(state, cuda_device)
+    st, _ = step(st, batch(0, cuda_device), 0, step=0)   # builds the kernels
+    cuda_lib.reset_launch_counts()
+    _, m = step(st, batch(1, cuda_device), 0, step=1)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts() == {
+        "lead_diff_encode": 0, "quantize_decode": n, "lead_update": n,
+        "quantize_encode": n, "randk_encode": 0, "mask_apply": 0}
+    _, mc = make_train_step(cfg, 4, dc, "cpu")(
+        _state_on(st, "cpu"), batch(1, "cpu"), 0, step=1)
+    assert float(m["bits_per_agent"]) == float(mc["bits_per_agent"])

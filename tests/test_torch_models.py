@@ -196,16 +196,23 @@ def test_chunked_loss_matches_dense():
 
 
 def test_unported_entry_points_raise():
+    """The serving entry points still raise NotImplementedError naming
+    ROADMAP.md.  The MoE init and the vlm memory stub, once unported, now
+    give the reference's leaf shapes and the stub's shape."""
     cfg = get_config("granite-3-2b").reduced()
     for fn in (tfm.prefill, tfm.decode_step, tfm.init_cache,
                tfm.prefill_chunk):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             fn(None, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfm.init_params(get_config("granite-moe-1b-a400m").reduced(),
-                        device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        synthetic.stub_memory("vlm", (4, 2), cfg)
+    moe_cfg = get_config("granite-moe-1b-a400m").reduced()
+    jp = jax_tfm.init_params(jax_get_config("granite-moe-1b-a400m").reduced(),
+                             jax.random.PRNGKey(0))
+    tp = tfm.init_params(moe_cfg, device=CPU)
+    assert [tuple(l.shape) for l in tree_leaves(tp)] \
+        == [l.shape for l in jax.tree_util.tree_leaves(jp)]
+    vlm = get_config("llama-3.2-vision-11b").reduced()
+    mem = synthetic.stub_memory("vlm", (4, 2), vlm, device=CPU)
+    assert tuple(mem.shape) == (4, 2, vlm.vis_tokens, vlm.d_model)
 
 
 @pytest.mark.parametrize("name,kw", [("sgd", {}), ("momentum", {"beta": 0.8}),

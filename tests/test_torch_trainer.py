@@ -45,7 +45,8 @@ DUAL_SUM = 1e-3
 
 # case -> DistConfig fields, in a form both packages read; "topology" names
 # a graph of topology_spec, "compressor" one of compressor_spec, "faults"
-# a link-drop rate, "mesh" the reference's mesh shape
+# a link-drop rate, "mesh" the reference's mesh shape, "arch" and "reduced"
+# the model (granite-3-2b ``.reduced()`` when absent; see model_config)
 CASES = {
     "nids": {"algorithm": "nids"},
     "allreduce": {"algorithm": "allreduce"},
@@ -64,7 +65,16 @@ def topology_spec(mod, name):
 
 
 def compressor_spec(mod, name):
-    return {"randk": lambda: mod.RandK(ratio=0.5)}[name]()
+    return {"randk": lambda: mod.RandK(ratio=0.5),
+            "identity": lambda: mod.Identity()}[name]()
+
+
+def model_config(registry, spec):
+    """The case's model config from `registry` (the reference's or the
+    port's configs.registry): spec["arch"] at ``.reduced(**spec["reduced"])``,
+    granite-3-2b ``.reduced()`` by default."""
+    return registry.get_config(spec.get("arch", "granite-3-2b")).reduced(
+        **spec.get("reduced", {}))
 
 
 def dist_fields(spec, topo_mod, comp_mod, faults_mod):
@@ -103,9 +113,9 @@ def _reference_main(outdir, names, cases):
     from jax.sharding import NamedSharding
 
     from repro.compat import AxisType, make_mesh, set_mesh
-    from repro.configs.registry import get_config
+    from repro.configs import registry
     from repro.core import compression, faults, topology
-    from repro.data.synthetic import LMStreamConfig, lm_batch
+    from repro.data.synthetic import LMStreamConfig, lm_batch, stub_memory
     from repro.dist import sharding as shr
     from repro.dist.trainer import (DistConfig, engine_of, init_train_state,
                                     make_train_step, state_shardings)
@@ -115,7 +125,7 @@ def _reference_main(outdir, names, cases):
         shape = tuple(spec.get("mesh", (A, 1)))
         axes = ("pod", "data", "model")[-len(shape):]
         mesh = make_mesh(shape, axes, axis_types=(AxisType.Auto,) * len(axes))
-        cfg = get_config("granite-3-2b").reduced()
+        cfg = model_config(registry, spec)
         prof = shr.make_profile(cfg, mesh.axis_names)
         shr.set_mesh_for_rules(mesh)
         dc = DistConfig(**dist_fields(spec, topology, compression, faults))
@@ -129,6 +139,11 @@ def _reference_main(outdir, names, cases):
         ds = LMStreamConfig(vocab=cfg.vocab, seq_len=SEQ,
                             batch_per_agent=BATCH, n_agents=A)
         out = {}
+        # the vlm's and audio model's stub memory, the same every step (the
+        # reference CLI's get_batch)
+        memory = stub_memory(cfg.family, (A, BATCH), cfg)
+        if memory is not None:
+            out["memory"] = np.asarray(memory)
 
         def put(prefix, state):
             for j, l in enumerate(jax.tree_util.tree_leaves(state.params)):
@@ -147,6 +162,8 @@ def _reference_main(outdir, names, cases):
                 b = lm_batch(ds, i)
                 out[f"s{i}/tokens"] = np.asarray(b["tokens"])
                 out[f"s{i}/labels"] = np.asarray(b["labels"])
+                if memory is not None:
+                    b["memory"] = memory
                 b = jax.device_put(b, NamedSharding(
                     mesh, shr.train_batch_spec(prof)))
                 kk = jax.random.fold_in(key, i)
@@ -211,13 +228,13 @@ def run_reference(tmp_dir, cases, per_process=2, timeout=600):
 
 def port_setup(spec):
     """(cfg, DistConfig, treedef) of a case in the port."""
-    from repro_torch.configs.registry import get_config
+    from repro_torch.configs import registry
     from repro_torch.core import compression, faults, topology
     from repro_torch.dist.trainer import DistConfig
     from repro_torch.models import transformer as tfm
     from repro_torch.utils.tree import tree_flatten
 
-    cfg = get_config("granite-3-2b").reduced()
+    cfg = model_config(registry, spec)
     dc = DistConfig(**dist_fields(spec, topology, compression, faults))
     _, treedef = tree_flatten(tfm.init_params(cfg, device="meta"))
     return cfg, dc, treedef
@@ -247,8 +264,13 @@ def port_state(ref, prefix, treedef, device="cpu", dtype=torch.float32):
 
 
 def port_batch(ref, i, device="cpu"):
-    return {k: torch.tensor(ref[f"s{i}/{k}"], dtype=torch.int64,
-                            device=device) for k in ("tokens", "labels")}
+    """Step i's batch of the reference: tokens, labels and, for vlm and
+    audio, the stub memory."""
+    b = {k: torch.tensor(ref[f"s{i}/{k}"], dtype=torch.int64,
+                         device=device) for k in ("tokens", "labels")}
+    if "memory" in ref:
+        b["memory"] = torch.tensor(ref["memory"], device=device)
+    return b
 
 
 def inject_draws(monkeypatch, ref):
