@@ -3,7 +3,7 @@
 
     PYTHONPATH=src python3 chip_smoke.py
 
-Builds the kernels from src/repro_torch/csrc, then runs twenty-one phases,
+Builds the kernels from src/repro_torch/csrc, then runs twenty-four phases,
 each printing one JSON line (the at-scale phases one per run); a failed
 check exits nonzero.
 
@@ -151,6 +151,33 @@ check exits nonzero.
                  peak allocated below 75 GB; each with
                  its ms/step, stage sums, gradient FLOP/s and peak memory,
                  and the MoE's routing (pairs dropped, heaviest expert)
+  serve_small    serving (serve/, the models' prefill and decode) on the
+                 card against the CPU for every registry arch at .reduced()
+                 size (xlstm at 6 layers, recurrentgemma at 3): a 20-token
+                 prompt at B = 2, 24 decode steps on the contiguous path
+                 with an f32 and a bf16 cache, logits within 1e-4 / 1e-3
+                 of the largest |logit|; for granite-3-2b, gemma3-12b and
+                 granite-moe-1b-a400m also the exact paged cache against
+                 the contiguous one on the card, bit for bit (gemma for
+                 150 steps, its rings wrapping), and 4-bit pages on both
+                 devices, codes differing below 1e-5, K4 and K2 twice per
+                 layer per step; one line per arch
+  serve_at_scale, serve_rolling_at_scale
+                 the whole granite-3-2b (40 layers, 2,634,201,088 f32
+                 parameters) and the whole gemma3-12b (48 layers, 40 local
+                 with window 1,024 and 8 global; 12,630,470,400), weights
+                 drawn on the card, served through launch/serve.py's
+                 serve_requests by the engine at 4-bit pages
+                 (max_len 2,048, page 16, block 512): 32 requests of
+                 64-768 tokens on 16 lanes, 128 new tokens each; 6 of
+                 1,040-1,500 tokens on 4 lanes (every ring wraps in
+                 prefill), 48 new each; K4 = K2 = two per layer in every
+                 decode step and prefill chunk, K1, K3, K5, K6 never;
+                 bits/elem 5.0625; peak below 75 GB; each with its decode
+                 ms per step and prefill ms per chunk (CUDA events), its
+                 tokens/s and its cache report; then the exact engine on
+                 the first 4 / 1 requests against the contiguous
+                 single-sequence path (equal up to a near-tie)
 
 The line before the last lists every kernel with its launches on the main
 path, its error against the plain version and its times; the last line is
@@ -2387,6 +2414,480 @@ def phase_train_at_scale(dev, smi, flops, what):
     return launches
 
 
+# -- serving (serve/, the decode side of models/) -------------------------------
+
+SERVE_KERNELS = ("quantize_encode", "quantize_decode")
+SERVE_PROMPT = 20           # serve_small: the prompt (B = 2) and its steps
+SERVE_STEPS = 24
+# card against CPU, of the largest |logit|, by the cache's dtype (a bf16
+# cache: a k whose f32 value differs in its last bit may round to the next
+# bf16, 2^-8 away; the CPU tests' 1e-3)
+SERVE_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+SERVE_CODE_FRAC = 1e-5      # 4-bit pages: codes that may differ, card vs CPU
+SERVE_PEAK_GB = 75.0
+# serve_small's depth where two layers miss a block type of the family
+SERVE_SMALL_DEPTH = {"xlstm-1.3b": 6, "recurrentgemma-2b": 3}
+# the paged engine's archs in serve_small: (cache_len, decode steps); gemma
+# decodes past its 128-token window so that its rings wrap
+SERVE_PAGED = {"granite-3-2b": (64, 24), "gemma3-12b": (192, 150),
+               "granite-moe-1b-a400m": (64, 24)}
+# the serving phases at scale, each a whole published model with f32 weights
+# drawn on the card: the engine at 4-bit pages, its load (n requests with
+# counter-hash prompts spread evenly over the lengths, all submitted at
+# once), then the exact engine on the first `exact` requests against the
+# contiguous single-sequence path; pinned: parameters, and K4 = K2 = two
+# launches per layer per decode step and per prefill chunk
+SERVE_AT_SCALE = {
+    "serve_at_scale": dict(arch="granite-3-2b", params=2_634_201_088,
+                           max_batch=16, requests=32, prompt=(64, 768),
+                           max_new=128, exact=4),
+    "serve_rolling_at_scale": dict(arch="gemma3-12b",
+                                   params=12_630_470_400, max_batch=4,
+                                   requests=6, prompt=(1040, 1500),
+                                   max_new=48, exact=1),
+}
+SERVE_PAGE, SERVE_MAX_LEN, SERVE_BITS = 16, 2048, 4
+
+
+def _contiguous_run(params, cfg, toks, steps, cache_len, memory=None,
+                    feed=None, paged=None, cache_dtype=torch.bfloat16):
+    """prefill then `steps` greedy decode steps on the contiguous path
+    (with `paged`, a paged_from_contiguous(**paged) copy of the prefill's
+    cache decoded beside it).  `feed` gives the tokens to decode (another
+    device's argmax), else each step's own argmax.  Returns the logits of
+    every step on the host (prefill first), the tokens fed, the paged
+    run's logits and its last cache."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.paged_cache import paged_from_contiguous
+
+    with torch.no_grad():
+        lg, cache = tfm.prefill(params, cfg, toks, memory=memory,
+                                cache_len=cache_len, cache_dtype=cache_dtype)
+        pcache = (paged_from_contiguous(cache, cfg, **paged)
+                  if paged is not None else None)
+        if pcache is not None:
+            # a second contiguous cache for the paged twin to start from
+            _, cache = tfm.prefill(params, cfg, toks, memory=memory,
+                                   cache_len=cache_len,
+                                   cache_dtype=cache_dtype)
+        logits, fed, plogits = [lg.cpu()], [], []
+        tok = lg[:, -1].argmax(-1)[:, None]
+        ptok = tok
+        for i in range(steps):
+            if feed is not None:
+                tok = ptok = feed[i].to(toks.device)
+            fed.append(tok.cpu())
+            lg, cache = tfm.decode_step(params, cfg, tok, cache)
+            logits.append(lg.cpu())
+            if pcache is not None:
+                plg, pcache = tfm.decode_step(params, cfg, ptok, pcache)
+                plogits.append(plg.cpu())
+                ptok = plg[:, -1].argmax(-1)[:, None]
+            tok = lg[:, -1].argmax(-1)[:, None]
+    return logits, fed, plogits, pcache
+
+
+def _held_steps(spy_card, spy_cpu, calls_per_step):
+    """How many leading entries of a run (prefill, then each decode step)
+    routed every MoE token as the CPU did, and the tokens that flip."""
+    if not spy_cpu.calls:
+        return None, 0
+    flips = spy_card.flips(spy_cpu)
+    for c, ((a, _, _), (b, _, _)) in enumerate(zip(spy_card.calls,
+                                                   spy_cpu.calls)):
+        if not torch.equal(a.cpu(), b.cpu()):
+            return c // calls_per_step, flips
+    return None, flips
+
+
+def serve_small_arch(dev, arch):
+    """One arch of serve_small at .reduced() (deeper where SERVE_SMALL_DEPTH
+    says), the same weights, prompt (B = 2, SERVE_PROMPT tokens) and stub
+    memory on the card and the CPU: prefill and SERVE_STEPS decode steps
+    on the contiguous path with an f32 and a bf16 cache, the card fed the
+    CPU's tokens, every step's logits within SERVE_RTOL of the CPU's
+    largest |logit| (an MoE's on the steps before its first routing
+    flip; fed is the bf16 run's tokens, the cache the paged runs use).  For the SERVE_PAGED archs also:
+    the exact paged cache against the contiguous one on the card, bit for
+    bit at every step (gemma past its window: the rings wrap), and 4-bit
+    pages (paged_from_contiguous of each device's prefill cache) decoded
+    on both devices with the CPU's tokens: of every code the run encodes,
+    those differing below SERVE_CODE_FRAC; K4 and K2 twice per layer per
+    step."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import stub_memory
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config(arch).reduced(n_layers=SERVE_SMALL_DEPTH.get(arch, 2))
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, SERVE_PROMPT),
+                         generator=torch.Generator().manual_seed(1))
+    mem = stub_memory(cfg.family, (2,), cfg, device="cpu")
+    cache_len = SERVE_PAGED.get(arch, (64,))[0]
+    out = {"arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers}
+    dparams = _tree_to(params, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        with RouteSpy() as cspy:
+            clog, fed, _, _ = _contiguous_run(params, cfg, toks, SERVE_STEPS,
+                                              cache_len, mem,
+                                              cache_dtype=dtype)
+        with RouteSpy() as gspy:
+            glog, _, _, _ = _contiguous_run(
+                dparams, cfg, toks.to(dev), SERVE_STEPS, cache_len,
+                None if mem is None else mem.to(dev), feed=fed,
+                cache_dtype=dtype)
+        first_flip, flips = _held_steps(gspy, cspy, max(1, sum(
+            t in ("attn", "local", "global") for t in cfg.layer_types())))
+        held = len(clog) if first_flip is None else first_flip
+        gap = max((max_abs(g, c) / float(c.abs().max())
+                   for g, c in zip(glog[:held], clog[:held])), default=0.0)
+        name = f"contiguous_{str(dtype).split('.')[-1]}"
+        out[name] = {"logit_gap": gap, "bound": SERVE_RTOL[dtype],
+                     "steps_held": held, "routing_flips": flips}
+        check(gap <= SERVE_RTOL[dtype], f"serve_small {cfg.name}: card vs "
+              f"CPU logits {out[name]}")
+        check(flips <= 0.01 * sum(ids.shape[0] for ids, _, _ in cspy.calls),
+              f"serve_small {cfg.name}: {flips} routing flips")
+    if arch not in SERVE_PAGED:
+        emit({"phase": "serve_small", **out})
+        return out, {k: 0 for k in SERVE_KERNELS}
+    cache_len, steps = SERVE_PAGED[arch]
+    logs, _, plogs, _ = _contiguous_run(dparams, cfg, toks.to(dev), steps,
+                                        cache_len, paged={"page": 16})
+    equal = [torch.equal(a, b) for a, b in zip(logs[1:], plogs)]
+    first = next((i for i, e in enumerate(equal) if not e), None)
+    out["paged_exact"] = {"cache_len": cache_len, "steps": steps,
+                          "bit_identical_steps": sum(equal)}
+    check(first is None, f"serve_small {cfg.name}: exact paged logits "
+          f"differ from the contiguous path's at step {first}")
+    paged4 = {"page": 16, "kv_bits": SERVE_BITS}
+    runs = {}
+    for device in ("cpu", dev):
+        p = params if device == "cpu" else dparams
+        cuda_lib.reset_launch_counts()
+        with KVCodeSpy() as spy:
+            _, _, qlog, _ = _contiguous_run(
+                p, cfg, toks.to(device), SERVE_STEPS, cache_len,
+                feed=fed, paged=paged4)
+        runs[device] = (qlog, spy.codes)
+    launches = cuda_lib.launch_counts()
+    # paged_from_contiguous encodes every page once, then each decode step
+    # encodes the tails and decodes the view: K and V of every layer
+    per_step = 2 * cfg.n_layers
+    expect_launches(launches, {"quantize_encode": per_step * (SERVE_STEPS + 1),
+                               "quantize_decode": per_step * SERVE_STEPS},
+                    f"serve_small {cfg.name} 4-bit")
+    (cq, cc), (gq, gc) = runs["cpu"], runs[dev]
+    check(len(gc) == len(cc), f"serve_small {cfg.name}: {len(gc)} encodes, "
+          f"{len(cc)} on the CPU")
+    differ = sum(int((a != b).sum()) for a, b in zip(gc, cc))
+    total = sum(b.numel() for b in cc)
+    held = len(cq) if first_flip is None else max(first_flip - 1, 0)
+    out["paged_4bit"] = {
+        "codes_differing": differ, "codes": total, "share": differ / total,
+        "logit_gap": max((max_abs(g, c) / float(c.abs().max())
+                          for g, c in zip(gq[:held], cq[:held])),
+                         default=0.0),
+        "launches": launches}
+    check(first_flip is not None or differ < SERVE_CODE_FRAC * total,
+          f"serve_small {cfg.name}: {differ} of {total} codes differ")
+    emit({"phase": "serve_small", **out})
+    return out, launches
+
+
+def phase_serve_small(dev):
+    """Every registry arch served on the card against the CPU (one line
+    each); returns the K4/K2 launches of the 4-bit paged runs, summed."""
+    from repro_torch.configs.registry import list_archs
+
+    total = {k: 0 for k in SERVE_KERNELS}
+    for arch in sorted(list_archs()):
+        _, launches = serve_small_arch(dev, arch)
+        for k in total:
+            total[k] += launches[k]
+    return total
+
+
+class KVCodeSpy:
+    """Records, on the host, the codes of every K4 encode (kernels/quantize
+    .encode, which kv_quant.encode_rows calls) made inside its with block,
+    in call order: to hold one device's KV codes against another's."""
+
+    def __enter__(self):
+        from repro_torch.kernels import quantize
+
+        self.codes, self._mod, self._orig = [], quantize, quantize.encode
+        spy = self
+
+        def encode(x, u, *, bits=2):
+            code, scale = spy._orig(x, u, bits=bits)
+            spy.codes.append(code.cpu())
+            return code, scale
+
+        quantize.encode = encode
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.encode = self._orig
+
+
+class StepSpy:
+    """Wraps ServeEngine's two step functions while active: a CUDA event
+    pair around every call (device time, read after the run) and the
+    kernel launches each call made (host counters, no sync)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import cuda_lib
+        from repro_torch.serve.engine import ServeEngine
+
+        self.calls = {"decode": [], "prefill": []}
+        self._cls, self._orig = ServeEngine, (ServeEngine._decode,
+                                              ServeEngine._prefill)
+        spy = self
+
+        def wrap(kind, fn):
+            def timed(eng, *args):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                before = cuda_lib.launch_counts()
+                a.record()
+                out = fn(eng, *args)
+                b.record()
+                after = cuda_lib.launch_counts()
+                spy.calls[kind].append(
+                    (a, b, {k: after[k] - before[k] for k in after}))
+                return out
+            return timed
+
+        ServeEngine._decode = wrap("decode", self._orig[0])
+        ServeEngine._prefill = wrap("prefill", self._orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._decode, self._cls._prefill = self._orig
+
+    def summary(self, kind):
+        """(median ms per call, the distinct launch counts per call)."""
+        calls = self.calls[kind]
+        ms = [a.elapsed_time(b) for a, b, _ in calls]
+        kinds = {tuple(sorted(d.items())) for _, _, d in calls}
+        return statistics.median(ms), [dict(k) for k in kinds], len(calls)
+
+
+class LogitSpy:
+    """Records, on the host, the top two logits and the largest |logit| of
+    every lane of every decode step (transformer.decode_step) and of the
+    last prefill chunk of every slot (transformer.prefill_chunk) made
+    inside its with block: the exact engine's margins, to read a
+    near-tie."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tfm
+
+        self.decode, self.prefill = [], {}
+        self._mod, self._orig = tfm, (tfm.decode_step, tfm.prefill_chunk)
+        spy = self
+
+        def top2(lg):
+            top = torch.topk(lg, 2)
+            return (top.values[..., 0] - top.values[..., 1]).cpu(), \
+                lg.abs().amax(-1).cpu()
+
+        def decode_step(params, cfg, token, cache, memory=None):
+            lg, cache = spy._orig[0](params, cfg, token, cache, memory)
+            spy.decode.append(top2(lg[:, -1]))
+            return lg, cache
+
+        def prefill_chunk(params, cfg, tokens, cache, slot, start,
+                          valid_len):
+            lg, cache = spy._orig[1](params, cfg, tokens, cache, slot, start,
+                                     valid_len)
+            spy.prefill[slot] = top2(lg[0, -1])
+            return lg, cache
+
+        tfm.decode_step, tfm.prefill_chunk = decode_step, prefill_chunk
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.decode_step, self._mod.prefill_chunk = self._orig
+
+    def margin(self, slot, token):
+        """(top-1 minus top-2 logit, largest |logit|) behind `token` of the
+        sequence in `slot` (token 0 from its prefill, token t from decode
+        step t - 1: every sequence admitted in the first tick)."""
+        if token == 0:
+            m, a = self.prefill[slot]
+            return float(m), float(a)
+        m, a = self.decode[token - 1]
+        return float(m[slot]), float(a[slot])
+
+
+def _serve_jobs(cfg, n, lo, hi, max_new, seed=0):
+    """n requests: counter-hash prompts (faults.counter_hash of the request
+    and position, mod vocab) of lengths spread evenly over [lo, hi]."""
+    from repro_torch.core.faults import counter_hash
+
+    jobs = []
+    for i in range(n):
+        L = lo + (hi - lo) * i // max(n - 1, 1)
+        h = counter_hash(seed, i, torch.arange(L), 0, 0x5E7E, device="cpu")
+        jobs.append(((h % cfg.vocab).tolist(), max_new))
+    return jobs
+
+
+def _greedy_with_margins(params, cfg, prompt, max_new, cache_len, dev):
+    """The contiguous single-sequence greedy stream of one prompt, with the
+    top-1 minus top-2 logit margin and the largest |logit| behind every
+    token (to read a near-tie)."""
+    from repro_torch.models import transformer as tfm
+
+    with torch.no_grad():
+        lg, cache = tfm.prefill(params, cfg, torch.tensor([prompt],
+                                                          device=dev),
+                                cache_len=cache_len)
+        toks, margins = [], []
+        for i in range(max_new):
+            top = torch.topk(lg[0, -1], 2)
+            toks.append(top.indices[0:1])
+            margins.append(torch.stack([top.values[0] - top.values[1],
+                                        lg[0, -1].abs().amax()]))
+            if i + 1 < max_new:
+                lg, cache = tfm.decode_step(params, cfg,
+                                            top.indices[0].reshape(1, 1),
+                                            cache)
+    return (torch.cat(toks).cpu().tolist(),
+            torch.stack(margins).cpu().tolist())
+
+
+def phase_serve_at_scale(dev, smi, what):
+    """SERVE_AT_SCALE[what]: the whole published model, f32 weights drawn on
+    the card from a seeded generator (parameters pinned), served through
+    launch/serve.serve_requests (the driver's function) by the engine at
+    ServeConfig(max_batch, max_len 2048, page 16, kv_bits 4): a bf16 tail,
+    block 512.  Every request finishes with max_new tokens; K4 and K2
+    launch twice per layer in every decode step and every prefill chunk
+    and K1, K3, K5, K6 never; bits/elem exactly 5.0625 and the pool 16 /
+    5.0625 smaller than bf16; one step signature each; peak allocated
+    below SERVE_PEAK_GB (the weights' drawing included).  Then the exact
+    engine (kv_bits=None) on the first `exact` requests: its greedy
+    streams equal the contiguous single-sequence path's up to a near-tie
+    (the first token where they part must have both paths' top-2 margins
+    within SERVE_RTOL[bf16] of the largest |logit|: the two paths round
+    differently, chunked prefill against one pass, 16 lanes against one);
+    the 4-bit streams' agreement with them is printed, not held
+    (random-init margins are noise)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import ServeConfig
+    from repro_torch.utils.tree import tree_size
+
+    spec = SERVE_AT_SCALE[what]
+    cfg = get_config(spec["arch"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n_params = tree_size(params)
+    init_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(n_params == spec["params"], f"{what}: {n_params} parameters")
+    scfg = ServeConfig(max_batch=spec["max_batch"], max_len=SERVE_MAX_LEN,
+                       page=SERVE_PAGE, kv_bits=SERVE_BITS)
+    jobs = _serve_jobs(cfg, spec["requests"], *spec["prompt"],
+                       spec["max_new"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_lib.reset_launch_counts()
+    with StepSpy() as spy:
+        eng, res, rids, wall = serve_requests(cfg, params, scfg, jobs, dev)
+    launches = cuda_lib.launch_counts()
+    serve_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    st, rep = eng.stats(), eng.cache_report()
+    block = eng.cache["layers"][0].spec.block
+    del eng
+    torch.cuda.empty_cache()
+    dec_ms, dec_launches, n_dec = spy.summary("decode")
+    pre_ms, pre_launches, n_pre = spy.summary("prefill")
+    per_call = {k: (2 * cfg.n_layers if k in SERVE_KERNELS else 0)
+                for k in launches}
+    check(all(len(res[r]["tokens"]) == m for r, (_, m) in zip(rids, jobs)),
+          f"{what}: a request did not finish")
+    check(dec_launches == [per_call] and pre_launches == [per_call],
+          f"{what}: launches per decode step {dec_launches}, per prefill "
+          f"chunk {pre_launches}, expected {per_call}")
+    check(block == 512 and rep["bits_per_elem"] == 5.0625
+          and rep["hbm_reduction_pool"] == 16 / 5.0625,
+          f"{what}: block {block}, cache report {rep}")
+    check(st["decode_compiles"] == 1 and st["prefill_compiles"] == 1,
+          f"{what}: step signatures {st}")
+    check(max(init_peak, serve_peak) < SERVE_PEAK_GB,
+          f"{what}: peak {init_peak:.2f} / {serve_peak:.2f} GB")
+
+    # the exact engine against the contiguous single-sequence path
+    k = spec["exact"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    with LogitSpy() as logit_spy:
+        exact, eres, erids, _ = serve_requests(
+            cfg, params, dataclasses.replace(scfg, kv_bits=None), jobs[:k],
+            dev)
+    # the k requests fill slots 0..k-1 in order at the first tick
+    slots = list(range(k))
+    del exact
+    torch.cuda.empty_cache()
+    streams = [eres[r]["tokens"] for r in erids]
+    refs = [_greedy_with_margins(params, cfg, p, m, SERVE_MAX_LEN, dev)
+            for p, m in jobs[:k]]
+    exact_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    first_diff = [next((i for i, (a, b) in enumerate(zip(s, r)) if a != b),
+                       None) for s, (r, _) in zip(streams, refs)]
+    # a stream may part from the contiguous path's only at a near-tie: where
+    # both paths' top-2 margins lie within the bf16 cache's logit bound
+    ties = []
+    for slot, d, (_, margins) in zip(slots, first_diff, refs):
+        if d is not None:
+            em, ea = logit_spy.margin(slot, d)
+            cm, ca = margins[d]
+            ties.append({"token": d, "engine_margin": em,
+                         "contiguous_margin": cm, "max_logit": max(ea, ca),
+                         "near_tie": max(em, cm) <= SERVE_RTOL[
+                             torch.bfloat16] * max(ea, ca)})
+    quant = [res[r]["tokens"] for r in rids[:k]]
+    agree = sum(a == b for q, s in zip(quant, streams) for a, b in zip(q, s))
+    out = {"phase": what, "nvidia_smi": smi, "arch": cfg.name,
+           "n_layers": cfg.n_layers, "params": n_params,
+           "weights_gb": 4 * n_params / 1e9, "init_s": init_s,
+           "serve_config": dataclasses.asdict(scfg), "block": block,
+           "requests": len(jobs), "prompt_tokens": sum(len(p)
+                                                       for p, _ in jobs),
+           "max_new": spec["max_new"], "wall_s": wall,
+           "decode_steps": st["decode_steps"], "tokens_out":
+           st["tokens_out"], "tokens_per_sec": st["tokens_per_sec"],
+           "decode_ms_median": dec_ms, "decode_calls": n_dec,
+           "prefill_ms_per_chunk_median": pre_ms, "prefill_chunks": n_pre,
+           "launches_per_decode_step": dec_launches[0],
+           "launches_per_prefill_chunk": pre_launches[0],
+           "launches": launches, "cache_report": rep,
+           "step_signatures": {"decode": st["decode_compiles"],
+                               "prefill": st["prefill_compiles"]},
+           "peak_gb": {"init": init_peak, "serve": serve_peak,
+                       "exact_check": exact_peak},
+           "exact_vs_contiguous_first_difference": first_diff,
+           "exact_vs_contiguous_ties": ties,
+           "quant4_tokens_equal_to_exact": [agree, k * spec["max_new"]]}
+    emit(out)
+    check(all(t["near_tie"] for t in ties),
+          f"{what}: the exact engine's streams part from the contiguous "
+          f"path's away from a near-tie: {ties}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2428,6 +2929,9 @@ def main():
     phase_train_small(dev)
     train = {what: phase_train_at_scale(dev, smi, flops, what)
              for what in TRAIN_AT_SCALE}
+    serve = {"serve_small": phase_serve_small(dev)}
+    serve.update({what: phase_serve_at_scale(dev, smi, what)
+                  for what in SERVE_AT_SCALE})
     # launches: each kernel's count on its path at the real size (LEAD's for
     # K1-K3, CHOCO's wire for K4-K6), each path run with the counts at 0
     at_scale = {"quantize_encode": baselines["pinf_2bit"],
@@ -2449,7 +2953,8 @@ def main():
                for w, v in runs.items()},
             **{f"multiwire_at_scale/{w}": v[k]
                for w, v in multiwire.items()},
-            **{what: v[k] for what, v in train.items()}}
+            **{what: v[k] for what, v in train.items()},
+            **{what: v.get(k, 0) for what, v in serve.items()}}
         if k in hot_path:
             r["hot_path_512"] = hot_path[k]
     print(smi, flush=True)

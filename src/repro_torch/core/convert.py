@@ -1,11 +1,13 @@
-"""Carry a reference state, fault state, problem, model or train state
-across to the port.
+"""Carry a reference state, fault state, problem, model, train state or
+serving cache across to the port.
 
 The reference's engine states are NamedTuples of arrays; ``np.asarray`` of
 each field is the common currency the parity tests feed both packages.
 Model parameters and train states are pytrees (dicts, tuples, NamedTuples)
 of arrays; ``params_from_numpy`` and ``train_state_from_numpy`` rebuild them
 with the port's tensors, the same structure and the same leaf order.
+Serving caches (``cache_from_numpy``, ``paged_cache_from_numpy``) are read
+by their fields' names, as the reference's cache classes are its own.
 """
 from __future__ import annotations
 
@@ -128,3 +130,82 @@ def train_state_from_numpy(state, device: DeviceLike = None):
         opt=opt,
         step=torch.tensor(int(np.asarray(state["step"])), dtype=torch.int64,
                           device=dev))
+
+
+def _exact_tensor(x, dev: torch.device) -> torch.Tensor:
+    """An array as a tensor of its own dtype (bfloat16 kept) on `dev`."""
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32), device=dev).to(
+            torch.bfloat16)
+    return torch.tensor(arr, device=dev)
+
+
+def cache_from_numpy(cache, device: DeviceLike = None):
+    """The port's contiguous serving cache (models/transformer.init_cache's
+    layout) on `device` from the reference's: {"layers": a KVCache (fields
+    k, v, rolling) or a recurrent state (MLSTMState, SLSTMState,
+    RGLRUState) per layer, "pos": 0-d} and the vlm's "cross_mem" and the
+    audio model's "enc_mem" (k, v) pairs, as arrays.  Every tensor keeps
+    its dtype (bf16 caches stay bf16); pos becomes int64."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import recurrent as rec
+
+    dev = resolve_device(device)
+    states = {c.__name__: c for c in (rec.MLSTMState, rec.SLSTMState,
+                                      rec.RGLRUState)}
+    layers = []
+    for c in cache["layers"]:
+        if hasattr(c, "rolling"):
+            layers.append(attn.KVCache(_exact_tensor(c.k, dev),
+                                       _exact_tensor(c.v, dev),
+                                       bool(c.rolling)))
+        elif type(c).__name__ in states:
+            layers.append(states[type(c).__name__](
+                *(_exact_tensor(f, dev) for f in c)))
+        else:
+            raise TypeError(f"no port counterpart for {type(c).__name__}")
+    out = {"layers": tuple(layers),
+           "pos": torch.tensor(int(np.asarray(cache["pos"])),
+                               dtype=torch.int64, device=dev)}
+    for key in ("cross_mem", "enc_mem"):
+        if key in cache:
+            out[key] = tuple(tuple(_exact_tensor(m, dev) for m in kv)
+                             for kv in cache[key])
+    return out
+
+
+def paged_cache_from_numpy(cache, device: DeviceLike = None):
+    """The port's paged serving cache (serve/paged_cache.init_paged_cache's
+    layout) on `device` from the reference's: {"layers": a PagedKVCache per
+    layer (fields page, rolling, spec, page_table, tail_k, tail_v and the
+    pools kp, vp or kc, ksc, vc, vsc), "pos": (B,), "active": (B,)}, as
+    arrays.  Each pool gains the port's spare row; codes stay int8, page
+    ids and positions become int64; the layers of one kind share one page
+    table, as they do in the reference."""
+    from repro_torch.serve.kv_quant import KVQuantSpec
+    from repro_torch.serve.paged_cache import (_POOL_FIELDS, PagedKVCache,
+                                               _with_spare)
+
+    dev = resolve_device(device)
+    tables = {}
+    layers = []
+    for c in cache["layers"]:
+        pt = np.asarray(c.page_table)
+        shared = tables.setdefault(bool(c.rolling), (pt, torch.tensor(
+            pt, dtype=torch.int64, device=dev)))
+        if not np.array_equal(shared[0], pt):
+            raise ValueError("layers of one kind must share one page table")
+        spec = None if c.spec is None else KVQuantSpec(int(c.spec.bits),
+                                                       int(c.spec.block))
+        pools = {n: _with_spare(_exact_tensor(getattr(c, n), dev))
+                 for n in _POOL_FIELDS if getattr(c, n, None) is not None}
+        layers.append(PagedKVCache(
+            page=int(c.page), rolling=bool(c.rolling), spec=spec,
+            page_table=shared[1], tail_k=_exact_tensor(c.tail_k, dev),
+            tail_v=_exact_tensor(c.tail_v, dev), **pools))
+    return {"layers": tuple(layers),
+            "pos": torch.tensor(np.asarray(cache["pos"]), dtype=torch.int64,
+                                device=dev),
+            "active": torch.tensor(np.asarray(cache["active"]),
+                                   dtype=torch.bool, device=dev)}

@@ -1,6 +1,6 @@
 """Model zoo: the reference's block-stack model for every family (dense,
-local:global, MoE, xLSTM, RG-LRU hybrid, vlm, audio), training path - see
-transformer.py for what is ported."""
+local:global, MoE, xLSTM, RG-LRU hybrid, vlm, audio), training and serving
+paths - see transformer.py."""
 from repro_torch.models import attention, moe, recurrent, transformer
 from repro_torch.models.transformer import (
     decode_step, encode_audio, forward, init_cache, init_params, loss_fn,

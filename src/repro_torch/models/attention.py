@@ -14,9 +14,18 @@ chunking, so the same sums are formed in the same groups:
 GQA: kv heads are broadcast over their group of query heads inside the
 einsums.  ``cross_attention`` is full (non-causal) attention to a fixed
 memory: the vlm's gated cross-attention, the audio encoder's bidirectional
-self-attention and its decoder's cross-attention.  The decode side
-(``KVCache``, ``decode_attention``, ``update_cache``, ``chunk_attention``,
-``init_cache``) comes with serving (ROADMAP.md).
+self-attention and its decoder's cross-attention.
+
+The decode side serves one token per sequence against a cache:
+``KVCache`` (contiguous, full or a rolling ring for sliding-window layers),
+``update_cache``, ``decode_attention`` (a scalar position or one per
+sequence, against a ``KVCache`` or a paged cache's ``view``),
+``chunk_attention`` (one prompt chunk against a paged cache's
+``prefill_view``) and ``init_cache``.  The caches are updated in place: a
+serving step owns its cache and hands the same object back.  Where JAX
+promotes an f32 query against a bf16 cache, the operands are cast to the
+promoted dtype first (torch's einsum does not promote), and the result is
+cast back to the query's dtype.
 """
 from __future__ import annotations
 
@@ -148,3 +157,101 @@ def cross_attention(q, mem_k, mem_v) -> torch.Tensor:
     s = _gqa_scores(q.to(dt), mem_k.to(dt)) * scale
     p = torch.softmax(s, dim=-1)
     return _gqa_values(p, mem_v.to(dt)).to(q.dtype)
+
+
+# -- decode (one token, cached) ---------------------------------------------------
+
+class KVCache:
+    """k, v: (B, L, nkv, hd); L = the cache length (full) or the window
+    (``rolling``: a ring buffer, position p at slot p % L)."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor,
+                 rolling: bool = False):
+        self.k, self.v, self.rolling = k, v, rolling
+
+
+def _promoted(*ts: torch.Tensor):
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in ts)
+
+
+def decode_attention(q: torch.Tensor, cache, pos: torch.Tensor) -> torch.Tensor:
+    """q: (B, 1, nq, hd); pos: the current position, a 0-d tensor or one
+    per sequence (B,).  The cache already holds the new token's k/v (see
+    update_cache).  ``cache`` is a KVCache or a paged cache exposing
+    ``view(pos) -> (k, v)`` and ``rolling`` (serve/paged_cache.py): the
+    paged view reproduces the contiguous slot order, so both run the same
+    masked softmax."""
+    B = q.shape[0]
+    if isinstance(cache, KVCache):
+        k, v = cache.k, cache.v
+    else:
+        k, v = cache.view(pos if pos.ndim else pos.expand(B))
+    L = k.shape[1]
+    qf, kf, vf = _promoted(q, k, v)
+    s = _gqa_scores(qf, kf) * q.shape[-1] ** -0.5               # (B, nq, 1, L)
+    slot = torch.arange(L, device=q.device)
+    posb = pos[:, None] if pos.ndim else pos                    # (B, 1) | ()
+    if cache.rolling:
+        # the ring holds the last L positions once pos >= L - 1
+        valid = (slot <= torch.clamp_max(posb, L - 1)) | (posb >= L - 1)
+    else:
+        valid = slot <= posb
+    valid = valid if valid.ndim == 2 else valid[None]           # (B|1, L)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return _gqa_values(p, vf).to(q.dtype)
+
+
+def update_cache(cache, k_new: torch.Tensor, v_new: torch.Tensor,
+                 pos: torch.Tensor):
+    """Write one token's k/v (B, 1, nkv, hd) at position ``pos`` (in place;
+    returns the cache).  A KVCache takes one shared 0-d position (the slot
+    pos % L when rolling); a paged cache takes one per sequence (B,) and
+    writes through its page table."""
+    if not isinstance(cache, KVCache):
+        return cache.update(k_new, v_new,
+                            pos if pos.ndim else pos.expand(k_new.shape[0]))
+    if pos.ndim:
+        raise ValueError("a contiguous KVCache decodes at one shared pos")
+    L = cache.k.shape[1]
+    idx = (torch.remainder(pos, L) if cache.rolling else pos).reshape(1)
+    cache.k.index_copy_(1, idx, k_new.to(cache.k.dtype))
+    cache.v.index_copy_(1, idx, v_new.to(cache.v.dtype))
+    return cache
+
+
+def chunk_attention(q, k_chunk, v_chunk, k_past, v_past, past_pos,
+                    past_valid, start: int, *, window=None) -> torch.Tensor:
+    """Prefill-continuation attention for one chunk of one sequence.
+
+    q, k_chunk, v_chunk: (1, C, nq|nkv, hd) at positions start..start+C-1;
+    k_past, v_past: (1, L, nkv, hd) whose slot j holds position
+    past_pos[j] (valid where past_valid[j]), as a paged cache's
+    prefill_view gives them.  window=None is full causal, else the
+    sliding-window band (k_pos > q_pos - window - 1) of windowed_attention.
+    One softmax over the L + C keys."""
+    C = q.shape[1]
+    dt = q.dtype
+    k = torch.cat([k_past.to(dt), k_chunk.to(dt)], 1)
+    v = torch.cat([v_past.to(dt), v_chunk.to(dt)], 1)
+    chunk_pos = start + torch.arange(C, device=q.device)
+    k_pos = torch.cat([past_pos, chunk_pos])                     # (L + C,)
+    k_valid = torch.cat([past_valid,
+                         torch.ones((C,), dtype=torch.bool, device=q.device)])
+    mask = k_valid[None, :] & (k_pos[None, :] <= chunk_pos[:, None])
+    if window is not None:
+        mask &= k_pos[None, :] > chunk_pos[:, None] - window - 1
+    s = _gqa_scores(q, k) * q.shape[-1] ** -0.5                 # (1, nq, C, L+C)
+    s = torch.where(mask[None, None], s, NEG_INF)
+    return _gqa_values(torch.softmax(s, dim=-1), v)             # (1, C, nq, hd)
+
+
+def init_cache(batch: int, length: int, nkv: int, hd: int, dtype,
+               rolling: bool = False, device=None) -> KVCache:
+    return KVCache(
+        k=torch.zeros((batch, length, nkv, hd), dtype=dtype, device=device),
+        v=torch.zeros((batch, length, nkv, hd), dtype=dtype, device=device),
+        rolling=rolling)

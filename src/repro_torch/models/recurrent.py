@@ -17,11 +17,16 @@ arXiv:2402.19427) - the port of ``src/repro/models/recurrent.py``.
 
 Every ``gelu`` is ``jax.nn.gelu``'s default, the tanh approximation.  Where
 the reference leans on JAX's type promotion (a bf16 activation against an
-f32 recurrent state), the operands are promoted explicitly.  The decode
-forms (``*_decode``, the ``*State`` tuples, ``*_init_state``) belong to
-serving and are not ported yet (ROADMAP.md).
+f32 recurrent state), the operands are promoted explicitly.
+
+Each mixer also has its decode form for serving: one step from a carried
+state (``mlstm_decode``, ``slstm_decode``, ``rglru_decode``), the state
+tuples (``MLSTMState``, ``SLSTMState``, ``RGLRUState``) and their empty
+states (``*_init_state``).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -150,6 +155,45 @@ def mlstm_forward(p, x, n_heads: int, chunk: int = 128):
     return _mm(out, p["w_down"]).to(x.dtype)
 
 
+class MLSTMState(NamedTuple):
+    C: torch.Tensor    # (B, nh, hd, hd) matrix memory
+    n: torch.Tensor    # (B, nh, hd)     normaliser
+    m: torch.Tensor    # (B, nh)         log-space stabiliser
+
+
+def mlstm_decode(p, x, state: MLSTMState, n_heads: int):
+    """x: (B, 1, d); one recurrent step -> (out (B, 1, d), new state)."""
+    B = x.shape[0]
+    _, q, k, v, i_pre, f_pre = _mlstm_heads(p, x, n_heads)
+    q, k, v = q[:, 0], k[:, 0], v[:, 0]                      # (B, nh, hd)
+    i_pre, f_pre = i_pre[:, 0], f_pre[:, 0]                  # (B, nh)
+    logf = F.logsigmoid(f_pre)
+    m_new = torch.maximum(logf + state.m, i_pre)
+    fg = torch.exp(logf + state.m - m_new)
+    ig = torch.exp(i_pre - m_new)
+    C = state.C * fg[..., None, None] \
+        + _ein("bnh,bnj->bnhj", k * ig[..., None], v)
+    n = state.n * fg[..., None] + k * ig[..., None]
+    num = _ein("bnh,bnhj->bnj", q, C)
+    den = torch.maximum(torch.abs(_ein("bnh,bnh->bn", q, n)),
+                        torch.exp(-m_new))
+    h = (num / den[..., None]).reshape(B, 1, -1)
+    out = _rms(h, p["out_ln"]) * F.silu(_mm(x, p["w_gate"]))
+    return _mm(out, p["w_down"]).to(x.dtype), MLSTMState(C=C, n=n, m=m_new)
+
+
+def mlstm_init_state(batch: int, d_model: int, n_heads: int,
+                     proj_factor: int = 2, device=None) -> MLSTMState:
+    hd = proj_factor * d_model // n_heads
+    return MLSTMState(
+        C=torch.zeros((batch, n_heads, hd, hd), dtype=torch.float32,
+                      device=device),
+        n=torch.zeros((batch, n_heads, hd), dtype=torch.float32,
+                      device=device),
+        m=torch.full((batch, n_heads), M0, dtype=torch.float32,
+                     device=device))
+
+
 # -- sLSTM -----------------------------------------------------------------------
 
 def slstm_init(gen, d_model: int, n_heads: int, device):
@@ -166,7 +210,14 @@ def slstm_init(gen, d_model: int, n_heads: int, device):
     }
 
 
-def _slstm_cell(p, xt, state, n_heads: int):
+class SLSTMState(NamedTuple):
+    c: torch.Tensor    # (B, d)
+    n: torch.Tensor
+    h: torch.Tensor
+    m: torch.Tensor
+
+
+def _slstm_cell(p, xt, state, n_heads: int) -> SLSTMState:
     """xt: (B, d); state (c, n, h, m), each (B, d) f32.  The
     exponential-gated sLSTM cell with the m-stabiliser."""
     c, n, hprev, m = state
@@ -187,26 +238,44 @@ def _slstm_cell(p, xt, state, n_heads: int):
     c = fg * c + ig * z
     n = fg * n + ig
     h = o * c / torch.clamp_min(torch.abs(n), 1.0)
-    return c, n, h, m_new
+    return SLSTMState(c=c, n=n, h=h, m=m_new)
 
 
 def slstm_forward(p, x, n_heads: int):
     """A loop over time; x: (B, S, d)."""
     B, S, d = x.shape
-    z = torch.zeros((B, d), dtype=torch.float32, device=x.device)
-    state = (z, z, z, torch.full((B, d), M0, dtype=torch.float32,
-                                 device=x.device))
+    state = slstm_init_state(B, d, x.device)
     hs = []
     for t in range(S):
         state = _slstm_cell(p, x[:, t], state, n_heads)
-        hs.append(state[2])
+        hs.append(state.h)
     h = torch.stack(hs, dim=1).to(x.dtype)
     # post-FFN (factor 4/3, as in the xLSTM sLSTM block)
     y = _rms(h, p["ffn_ln"])
     return _mm(_gelu(_mm(y, p["w_ffn_up"])), p["w_ffn_dn"]).to(x.dtype)
 
 
+def slstm_decode(p, x, state: SLSTMState, n_heads: int):
+    """x: (B, 1, d); one step -> (out (B, 1, d), new state)."""
+    new = _slstm_cell(p, x[:, 0], state, n_heads)
+    y = _rms(new.h.to(x.dtype), p["ffn_ln"])
+    out = _mm(_gelu(_mm(y, p["w_ffn_up"])), p["w_ffn_dn"])[:, None]
+    return out.to(x.dtype), new
+
+
+def slstm_init_state(batch: int, d_model: int, device=None) -> SLSTMState:
+    z = torch.zeros((batch, d_model), dtype=torch.float32, device=device)
+    return SLSTMState(c=z, n=z, h=z,
+                      m=torch.full((batch, d_model), M0,
+                                   dtype=torch.float32, device=device))
+
+
 # -- RG-LRU ----------------------------------------------------------------------
+
+class RGLRUState(NamedTuple):
+    h: torch.Tensor          # (B, d_rnn)
+    conv_buf: torch.Tensor   # (B, conv_width - 1, d) trailing conv inputs
+
 
 def rglru_init(gen, d_model: int, device, conv_width: int = 4):
     d = d_model
@@ -264,3 +333,23 @@ def rglru_forward(p, x):
     h = linear_scan(a, gx)
     h = h.to(x.dtype) * _gelu(_mm(x, p["w_gate"]))
     return _mm(h, p["w_out"])
+
+
+def rglru_decode(p, x, state: RGLRUState):
+    """x: (B, 1, d); one step -> (out (B, 1, d), new state)."""
+    bp = _mm(x, p["w_x"])                                    # (B, 1, d)
+    hist = torch.cat([state.conv_buf.to(bp.dtype), bp], dim=1)  # (B, cw, d)
+    conv_out = _ein("bkd,kd->bd", hist, p["conv"])[:, None]
+    a, gx = _rglru_gates(p, conv_out)
+    h = a[:, 0] * state.h + gx[:, 0]
+    out = _mm(h[:, None].to(x.dtype) * _gelu(_mm(x, p["w_gate"])),
+              p["w_out"])
+    return out, RGLRUState(h=h, conv_buf=hist[:, 1:].to(state.conv_buf.dtype))
+
+
+def rglru_init_state(batch: int, d_model: int, conv_width: int = 4,
+                     device=None) -> RGLRUState:
+    return RGLRUState(
+        h=torch.zeros((batch, d_model), dtype=torch.float32, device=device),
+        conv_buf=torch.zeros((batch, conv_width - 1, d_model),
+                             dtype=torch.float32, device=device))

@@ -38,12 +38,16 @@ Entry points:
     encode_audio(params, cfg, frames)
     logits_fn(params, cfg, hidden)
     loss_fn(params, cfg, batch, chunk=512) -> (loss, metrics)
+    init_cache(cfg, batch, cache_len, dtype, device)
+    prefill(params, cfg, tokens, memory=None, cache_len) -> (logits, cache)
+    decode_step(params, cfg, token, cache) -> (logits, cache)
+    prefill_chunk(params, cfg, tokens, cache, slot, start, valid_len)
+        -> (last-valid-token logits, cache)   [paged serving path]
 
-Not ported yet, each raising NotImplementedError (ROADMAP.md lists them in
-order): the expert-parallel MoE (``moe_ep_axis``: models/moe_ep.py's
-all-to-all, with the multi-card trainer) and the serving entry points
-``prefill``, ``prefill_chunk``, ``decode_step`` and ``init_cache`` (with
-the recurrent blocks' decode forms).
+The serving caches are updated in place (a step owns its cache).  Not
+ported yet, raising NotImplementedError (ROADMAP.md): the expert-parallel
+MoE (``moe_ep_axis``: models/moe_ep.py's all-to-all, with the multi-card
+trainer).
 """
 from __future__ import annotations
 
@@ -63,12 +67,6 @@ from repro_torch.utils.tree import tree_map
 Params = Dict[str, Any]
 
 _ATTN_BLOCKS = ("attn", "local", "global")
-_ROADMAP = "see ROADMAP.md, queue 1"
-
-
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"({_ROADMAP})")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -142,15 +140,23 @@ def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
-def _by_period(cfg: ModelConfig, per_layer):
+def _by_period(cfg: ModelConfig, per_layer: list):
     """Per-layer trees stacked into one group per pattern position when
     the layers are (n_layers a multiple of the period, larger than it),
-    else the tuple of per-layer trees."""
+    else the tuple of per-layer trees.  Each layer's entry of `per_layer`
+    is dropped once its group is stacked, so that the stacking holds one
+    group's copy at a time (gemma3-12b whole is 50.5 GB of f32)."""
     period = cfg.scan_period()
     if period and cfg.n_layers > period:
         n_per = cfg.n_layers // period
-        return tuple(_stack([per_layer[i * period + j] for i in range(n_per)])
-                     for j in range(period))
+        groups = []
+        for j in range(period):
+            rows = [per_layer[i * period + j] for i in range(n_per)]
+            for i in range(n_per):
+                per_layer[i * period + j] = None
+            groups.append(_stack(rows))
+            del rows
+        return tuple(groups)
     return tuple(per_layer)
 
 
@@ -241,14 +247,18 @@ def _self_attn_full(cfg, p, x, positions, block_type):
     else:
         o = attn.chunked_causal_attention(q, k, v)
     B, S = x.shape[:2]
-    return o.reshape(B, S, -1) @ ap["wo"].to(x.dtype)
+    return o.reshape(B, S, -1) @ ap["wo"].to(x.dtype), (k, v)
 
 
-def _block_apply(cfg, p, x, positions, block_type):
-    """Full-sequence application of one block."""
+def _block_apply(cfg, p, x, positions, block_type, collect_cache=False):
+    """Full-sequence application of one block -> (x, cache entry): the
+    attention block's (k, v) or a recurrent block's final state when
+    `collect_cache` (prefill), else None."""
+    entry = None
     if block_type in _ATTN_BLOCKS:
-        x = x + _self_attn_full(cfg, p, _rms(x, p["ln1"]), positions,
+        o, kv = _self_attn_full(cfg, p, _rms(x, p["ln1"]), positions,
                                 block_type)
+        x = x + o
         h2 = _rms(x, p["ln2"])
         if cfg.n_experts:
             # the aux loss is discarded, as in the reference's block
@@ -257,17 +267,53 @@ def _block_apply(cfg, p, x, positions, block_type):
                                          seq_chunk=cfg.moe_seq_chunk)
         else:
             mo = _mlp_apply(cfg, p["mlp"], h2)
-        return x + mo
+        return x + mo, (kv if collect_cache else None)
+    h = _rms(x, p["ln1"])
     if block_type == "mlstm":
-        return x + rec.mlstm_forward(p["mlstm"], _rms(x, p["ln1"]),
-                                     cfg.n_heads)
+        x = x + rec.mlstm_forward(p["mlstm"], h, cfg.n_heads)
+        if collect_cache:
+            entry = _mlstm_final_state(cfg, p, h)
+        return x, entry
     if block_type == "slstm":
-        return x + rec.slstm_forward(p["slstm"], _rms(x, p["ln1"]),
-                                     cfg.n_heads)
+        x = x + rec.slstm_forward(p["slstm"], h, cfg.n_heads)
+        if collect_cache:
+            entry = _slstm_final_state(cfg, p, h)
+        return x, entry
     if block_type == "rglru":
-        x = x + rec.rglru_forward(p["rglru"], _rms(x, p["ln1"]))
-        return x + _mlp_apply(cfg, p["mlp"], _rms(x, p["ln2"]))
+        x = x + rec.rglru_forward(p["rglru"], h)
+        x = x + _mlp_apply(cfg, p["mlp"], _rms(x, p["ln2"]))
+        if collect_cache:
+            entry = _rglru_final_state(cfg, p, h)
+        return x, entry
     raise ValueError(block_type)
+
+
+# recurrent final states for prefill: the recurrence run again in its decode
+# form (one extra pass, on the prefill path only)
+
+def _mlstm_final_state(cfg, p, h):
+    st = rec.mlstm_init_state(h.shape[0], cfg.d_model, cfg.n_heads,
+                              device=h.device)
+    for t in range(h.shape[1]):
+        _, st = rec.mlstm_decode(p["mlstm"], h[:, t:t + 1], st, cfg.n_heads)
+    return st
+
+
+def _slstm_final_state(cfg, p, h):
+    st = rec.slstm_init_state(h.shape[0], cfg.d_model, device=h.device)
+    for t in range(h.shape[1]):
+        st = rec._slstm_cell(p["slstm"], h[:, t], st, cfg.n_heads)
+    return st
+
+
+def _rglru_final_state(cfg, p, h):
+    bp = rec._mm(h, p["rglru"]["w_x"])
+    a, gx = rec._rglru_gates(p["rglru"], rec._causal_conv(p["rglru"], bp))
+    hf = rec.linear_scan(a, gx)
+    cw = p["rglru"]["conv"].shape[0]
+    pad = F.pad(bp, (0, 0, cw - 1, 0))
+    return rec.RGLRUState(h=hf[:, -1],
+                          conv_buf=pad[:, -(cw - 1):].to(torch.float32))
 
 
 def _cross_attn_apply(cfg, p, x, mem_kv):
@@ -371,7 +417,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                          "(memory=)")
     cross_idx = 0
     for i, t, lp in _iter_layers(cfg, params):
-        x = _block_apply(cfg, lp, x, positions, t)
+        x, _ = _block_apply(cfg, lp, x, positions, t)
         if cfg.encoder_layers:
             xp = _dec_cross_param(cfg, params, i)
             x = x + _cross_attn_apply(cfg, xp, _rms(x, xp["ln"]),
@@ -418,18 +464,221 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     return loss, {"loss": loss}
 
 
-def _serving(name):
-    def entry(*args, **kwargs):
-        raise _unported(f"the serving entry point {name}")
-    entry.__name__ = name
-    entry.__doc__ = f"Serving's {name}: not ported yet ({_ROADMAP})."
-    return entry
+# -- serving: prefill + decode ---------------------------------------------------
+
+def _layer_cache_template(cfg: ModelConfig, t: str, batch: int,
+                          cache_len: int, dtype, device):
+    if t in ("attn", "global"):
+        return attn.init_cache(batch, cache_len, cfg.kv_heads, cfg.head_dim,
+                               dtype, device=device)
+    if t == "local":
+        return attn.init_cache(batch, min(cfg.window, cache_len),
+                               cfg.kv_heads, cfg.head_dim, dtype,
+                               rolling=True, device=device)
+    if t == "mlstm":
+        return rec.mlstm_init_state(batch, cfg.d_model, cfg.n_heads,
+                                    device=device)
+    if t == "slstm":
+        return rec.slstm_init_state(batch, cfg.d_model, device=device)
+    if t == "rglru":
+        return rec.rglru_init_state(batch, cfg.d_model, device=device)
+    raise ValueError(t)
 
 
-prefill = _serving("prefill")
-prefill_chunk = _serving("prefill_chunk")
-decode_step = _serving("decode_step")
-init_cache = _serving("init_cache")
+def _mem_slots(batch, M, cfg, dtype, device, n):
+    return tuple(
+        tuple(torch.zeros((batch, M, cfg.kv_heads, cfg.head_dim),
+                          dtype=dtype, device=device) for _ in range(2))
+        for _ in range(n))
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               dtype=torch.bfloat16, device: DeviceLike = None):
+    """The contiguous serving cache: {"layers": one entry per layer (a
+    KVCache, or a recurrent block's state), "pos": 0-d int64} plus the
+    vlm's "cross_mem" and the audio model's "enc_mem" (k, v) slots, on
+    `device` ("cuda" when None)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    out = {"layers": tuple(_layer_cache_template(cfg, t, batch, cache_len,
+                                                 dtype, dev)
+                           for t in cfg.layer_types()),
+           "pos": torch.zeros((), dtype=torch.int64, device=dev)}
+    if cfg.cross_attn_every:
+        out["cross_mem"] = _mem_slots(batch, cfg.vis_tokens, cfg, dtype, dev,
+                                      cfg.n_layers // cfg.cross_attn_every)
+    if cfg.encoder_layers:
+        out["enc_mem"] = _mem_slots(batch, cfg.n_audio_frames, cfg, dtype,
+                                    dev, cfg.n_layers)
+    return out
+
+
+def _embed(params, cfg, tokens):
+    return F.embedding(tokens, params["embed"].to(getattr(torch,
+                                                          cfg.param_dtype)))
+
+
+def prefill(params, cfg: ModelConfig, tokens, memory=None, cache_len=None,
+            cache_dtype=torch.bfloat16):
+    """Process a prompt (B, S) -> (last-token logits (B, 1, V), the
+    populated contiguous cache at cache_len (default S), on the tokens'
+    device).  The reference's ``prefill_scan`` branch computes the same
+    numbers as its layer loop; here one loop serves both."""
+    check_supported(cfg)
+    B, S = tokens.shape
+    cache_len = cache_len or S
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(S, device=tokens.device)[None]
+    enc_out = None
+    if cfg.encoder_layers:
+        enc_out = encode_audio(params, cfg, memory)
+    cache = init_cache(cfg, B, cache_len, cache_dtype, tokens.device)
+    layers, cross_mems, enc_mems = [], [], []
+    cross_idx = 0
+    for i, t, lp in _iter_layers(cfg, params):
+        x, entry = _block_apply(cfg, lp, x, positions, t, collect_cache=True)
+        layers.append(_fill_cache(t, cache["layers"][i], entry, S))
+        if cfg.encoder_layers:
+            xp = _dec_cross_param(cfg, params, i)
+            mem = _mem_kv(cfg, xp, enc_out)
+            enc_mems.append(tuple(m.to(cache_dtype) for m in mem))
+            x = x + _cross_attn_apply(cfg, xp, _rms(x, xp["ln"]), mem)
+        if cfg.cross_attn_every and (i + 1) % cfg.cross_attn_every == 0:
+            cp = _cross_param(cfg, params, cross_idx)
+            mem = _mem_kv(cfg, cp, memory)
+            cross_mems.append(tuple(m.to(cache_dtype) for m in mem))
+            x = x + _cross_attn_apply(cfg, cp, _rms(x, cp["ln"]), mem)
+            cross_idx += 1
+    cache["layers"] = tuple(layers)
+    cache["pos"] = torch.full((), S, dtype=torch.int64, device=tokens.device)
+    if cross_mems:
+        cache["cross_mem"] = tuple(cross_mems)
+    if enc_mems:
+        cache["enc_mem"] = tuple(enc_mems)
+    h = _rms(x[:, -1:], params["final_ln"])
+    return logits_fn(params, cfg, h), cache
+
+
+def _fill_cache(t, template, entry, S):
+    if t in ("attn", "global"):
+        k, v = entry
+        L = template.k.shape[1]
+        template.k[:, :min(S, L)] = k[:, :L]
+        template.v[:, :min(S, L)] = v[:, :L]
+        return template
+    if t == "local":
+        k, v = entry
+        w = template.k.shape[1]
+        if S >= w:
+            # ring order: position p lives at slot p % w
+            slots = torch.remainder(torch.arange(S - w, S, device=k.device), w)
+            template.k[:, slots] = k[:, S - w:S].to(template.k.dtype)
+            template.v[:, slots] = v[:, S - w:S].to(template.v.dtype)
+        else:
+            template.k[:, :S] = k
+            template.v[:, :S] = v
+        return template
+    return entry                     # recurrent states pass through
+
+
+def _ffn(cfg, lp, x):
+    """The attention block's MLP or MoE on the residual x.  Serving routes
+    MoE tokens at capacity factor 4, as the reference's serving does."""
+    h2 = _rms(x, lp["ln2"])
+    if cfg.n_experts:
+        mo, _ = moe_mod.moe_apply(lp["moe"], h2, top_k=cfg.top_k,
+                                  capacity_factor=4.0)
+        return mo
+    return _mlp_apply(cfg, lp["mlp"], h2)
+
+
+def prefill_chunk(params, cfg: ModelConfig, tokens, cache, slot: int,
+                  start: int, valid_len: int):
+    """Chunked prefill into a paged cache (serve/paged_cache.py): one
+    (1, C) chunk of one sequence's prompt attends to the slot's cached pages
+    and to itself (causal), and its k/v go in through the page table.  C is
+    the cache's page size, so a full chunk flushes as one page and only the
+    last, partial chunk (valid_len < C; its pad positions are masked by
+    position) lands in the exact tail.  slot, start and valid_len are host
+    ints from the scheduler.  Returns (logits of the last valid token
+    (1, 1, V), the cache, updated in place)."""
+    check_supported(cfg)
+    C = tokens.shape[1]
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(start, start + C, device=tokens.device)[None]
+    for i, t, lp in _iter_layers(cfg, params):
+        if t not in _ATTN_BLOCKS:
+            raise ValueError(f"prefill_chunk serves attention stacks only, "
+                             f"got {t!r}")
+        c = cache["layers"][i]
+        q, k, v = _qkv(cfg, lp["attn"], _rms(x, lp["ln1"]))
+        q = attn.apply_rope(q, positions, cfg.rope_theta)
+        k = attn.apply_rope(k, positions, cfg.rope_theta)
+        k_past, v_past, past_pos, past_valid = c.prefill_view(slot, start)
+        o = attn.chunk_attention(
+            q, k, v, k_past, v_past, past_pos, past_valid, start,
+            window=cfg.window if t == "local" else None)
+        x = x + o.reshape(1, C, -1) @ lp["attn"]["wo"].to(x.dtype)
+        x = x + _ffn(cfg, lp, x)
+        c.insert_chunk(k, v, slot, start, valid_len)
+    h = _rms(x[:, valid_len - 1:valid_len], params["final_ln"])
+    return logits_fn(params, cfg, h), cache
+
+
+def decode_step(params, cfg: ModelConfig, token, cache, memory=None):
+    """token: (B, 1) integer; cache from init_cache / prefill (contiguous,
+    a 0-d ``pos``) or serve/paged_cache.init_paged_cache (paged, ``pos``
+    one position per sequence (B,): continuous batching; other keys such
+    as ``active`` ride through).  Returns (logits (B, 1, V), the cache):
+    the layers' caches are updated in place, the returned dict holds the
+    new states of the recurrent layers and ``pos`` + 1."""
+    check_supported(cfg)
+    B = token.shape[0]
+    pos = cache["pos"]
+    x = _embed(params, cfg, token)
+    positions = pos[:, None] if pos.ndim == 1 else pos.expand(B, 1)
+    new_layers = []
+    cross_idx = 0
+    for i, t, lp in _iter_layers(cfg, params):
+        c = cache["layers"][i]
+        h = _rms(x, lp["ln1"])
+        if t in _ATTN_BLOCKS:
+            q, k, v = _qkv(cfg, lp["attn"], h)
+            q = attn.apply_rope(q, positions, cfg.rope_theta)
+            k = attn.apply_rope(k, positions, cfg.rope_theta)
+            c = attn.update_cache(c, k, v, pos)
+            o = attn.decode_attention(q, c, pos)
+            x = x + o.reshape(B, 1, -1) @ lp["attn"]["wo"].to(x.dtype)
+            x = x + _ffn(cfg, lp, x)
+        elif t == "mlstm":
+            o, c = rec.mlstm_decode(lp["mlstm"], h, c, cfg.n_heads)
+            x = x + o
+        elif t == "slstm":
+            o, c = rec.slstm_decode(lp["slstm"], h, c, cfg.n_heads)
+            x = x + o
+        elif t == "rglru":
+            o, c = rec.rglru_decode(lp["rglru"], h, c)
+            x = x + o
+            x = x + _mlp_apply(cfg, lp["mlp"], _rms(x, lp["ln2"]))
+        else:
+            raise ValueError(t)
+        new_layers.append(c)
+        if cfg.encoder_layers:
+            xp = _dec_cross_param(cfg, params, i)
+            mk, mv = cache["enc_mem"][i]
+            x = x + _cross_attn_apply(cfg, xp, _rms(x, xp["ln"]),
+                                      (mk.to(x.dtype), mv.to(x.dtype)))
+        if cfg.cross_attn_every and (i + 1) % cfg.cross_attn_every == 0:
+            cp = _cross_param(cfg, params, cross_idx)
+            mk, mv = cache["cross_mem"][cross_idx]
+            x = x + _cross_attn_apply(cfg, cp, _rms(x, cp["ln"]),
+                                      (mk.to(x.dtype), mv.to(x.dtype)))
+            cross_idx += 1
+    new_cache = dict(cache)
+    new_cache["layers"] = tuple(new_layers)
+    new_cache["pos"] = pos + 1
+    return logits_fn(params, cfg, _rms(x, params["final_ln"])), new_cache
+
 
 __all__ = ["check_supported", "decode_step", "encode_audio", "forward",
            "init_cache", "init_params", "logits_fn", "loss_fn", "prefill",

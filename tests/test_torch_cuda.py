@@ -956,3 +956,129 @@ def test_family_trainer_step_launches_its_kernels(cuda_device, arch):
     _, mc = make_train_step(cfg, 4, dc, "cpu")(
         _state_on(st, "cpu"), batch(1, "cpu"), 0, step=1)
     assert float(m["bits_per_agent"]) == float(mc["bits_per_agent"])
+
+
+# -- serving: the KV page codec, decode_step, the engine's syncs ----------------
+
+def _serve_page_shapes():
+    """The KV page shapes serving meets: granite-3-2b's at page 16 (8,192
+    elements, block 512) and each reduced config's (its pick_block)."""
+    from repro_torch.configs.registry import get_config, list_archs
+
+    shapes = {(16, 8, 64)}
+    for arch in list_archs():
+        cfg = get_config(arch).reduced()
+        shapes.add((16, cfg.kv_heads, cfg.head_dim))
+    return sorted(shapes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 4, 7])
+def test_kv_codec_card_equals_cpu(cuda_device, bits):
+    """encode_rows and decode_rows on the card bit for bit the CPU's, at
+    block 512 and at the block pick_block gives each reduced config's page
+    (a zero page and a loud position included); one K4 per encode, one K2
+    per decode."""
+    from repro_torch.serve import kv_quant as kvq
+
+    rng = np.random.default_rng(bits)
+    for shape in _serve_page_shapes():
+        x = torch.from_numpy(rng.standard_normal((33, *shape))
+                             .astype(np.float32))
+        x[1] = 0.0
+        x[2, 0] *= 1e4
+        spec = kvq.KVQuantSpec(bits, kvq.pick_block(int(np.prod(shape))))
+        cc, cs = kvq.encode_rows(x, spec)
+        cuda_lib.reset_launch_counts()
+        gc, gs = kvq.encode_rows(x.to(cuda_device), spec)
+        assert torch.equal(gc.cpu(), cc) and torch.equal(gs.cpu(), cs)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = kvq.decode_rows(gc, gs, spec, shape, dtype)
+            assert torch.equal(got.cpu(),
+                               kvq.decode_rows(cc, cs, spec, shape, dtype))
+        torch.cuda.synchronize()
+        counts = cuda_lib.launch_counts()
+        assert counts["quantize_encode"] == 1
+        assert counts["quantize_decode"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-2b", "gemma3-12b"])
+@pytest.mark.parametrize("kv_bits", [None, 4])
+def test_serve_decode_step_card_equals_cpu(cuda_device, arch, kv_bits):
+    """Reduced granite and gemma, the same weights and prompt: prefill and
+    four decode steps on the contiguous path (kv_bits None) or the 4-bit
+    paged path (paged_from_contiguous of the CPU's prefill cache), f32
+    caches, the card fed the CPU's tokens, logits within 1e-4 of the
+    largest |logit|; the 4-bit decode step launches K4 and K2 twice per
+    layer."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.paged_cache import paged_from_contiguous
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_config(arch).reduced()
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 20),
+                         generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        lg, cache = tfm.prefill(params, cfg, toks, cache_len=64,
+                                cache_dtype=torch.float32)
+    caches = {"cpu": cache,
+              "cuda": {**cache, "pos": cache["pos"].to(cuda_device),
+                       "layers": tuple(type(c)(c.k.to(cuda_device),
+                                               c.v.to(cuda_device),
+                                               c.rolling)
+                                       for c in cache["layers"])}}
+    if kv_bits:
+        caches = {d: paged_from_contiguous(c, cfg, page=16, kv_bits=kv_bits)
+                  for d, c in caches.items()}
+    dparams = tree_map(lambda l: l.to(cuda_device), params)
+    tok = lg[:, -1].argmax(-1)[:, None]
+    for i in range(4):
+        cuda_lib.reset_launch_counts()
+        with torch.no_grad():
+            glg, caches["cuda"] = tfm.decode_step(
+                dparams, cfg, tok.to(cuda_device), caches["cuda"])
+            clg, caches["cpu"] = tfm.decode_step(params, cfg, tok,
+                                                 caches["cpu"])
+        counts = cuda_lib.launch_counts()
+        want = 2 * cfg.n_layers if kv_bits else 0
+        assert counts["quantize_encode"] == counts["quantize_decode"] == want
+        assert float((glg.cpu() - clg).abs().max()) \
+            <= 1e-4 * float(clg.abs().max()), i
+        tok = clg[:, -1].argmax(-1)[:, None]
+
+
+@pytest.mark.cuda
+def test_engine_decode_step_makes_one_sync(cuda_device):
+    """Six engine ticks with no admission (two sequences decoding at 4-bit
+    pages, a page boundary and its growth among them) each synchronise the
+    card with the host once: the copy of the step's tokens."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = get_config("granite-3-2b").reduced()
+    params = tfm.init_params(cfg, torch.Generator(cuda_device).manual_seed(0),
+                             cuda_device)
+    eng = ServeEngine(cfg, params, ServeConfig(max_batch=2, max_len=64,
+                                               page=16, kv_bits=4),
+                      device=cuda_device)
+    eng.submit(list(range(13)), max_new=20)
+    eng.submit(list(range(5, 30)), max_new=20)
+    with torch.no_grad():
+        eng.step()                          # admits both, builds the kernels
+        for _ in range(6):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    assert eng.step() == 2
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs = [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+                     for w in caught if "called a synchronizing CUDA "
+                     "operation" in str(w.message)]
+            assert len(syncs) == 1 and syncs[0].startswith("engine.py"), \
+                syncs

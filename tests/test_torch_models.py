@@ -196,14 +196,50 @@ def test_chunked_loss_matches_dense():
 
 
 def test_unported_entry_points_raise():
-    """The serving entry points still raise NotImplementedError naming
-    ROADMAP.md.  The MoE init and the vlm memory stub, once unported, now
-    give the reference's leaf shapes and the stub's shape."""
+    """Once raising, the serving entry points now give the reference's
+    shapes for reduced granite: init_cache's and prefill's cache leaves,
+    decode_step's and prefill_chunk's logits and caches (the paged cache's
+    pools carry one spare row).  The MoE init and the vlm memory stub, once
+    unported, give the reference's leaf shapes and the stub's shape."""
+    from repro.serve import paged_cache as jax_pc
+    from repro_torch.serve import paged_cache as pc
+
     cfg = get_config("granite-3-2b").reduced()
-    for fn in (tfm.prefill, tfm.decode_step, tfm.init_cache,
-               tfm.prefill_chunk):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn(None, cfg)
+    jcfg = jax_get_config("granite-3-2b").reduced()
+
+    def shapes(tree):
+        return [tuple(np.shape(l)) for l in jax.tree_util.tree_leaves(
+            tree, is_leaf=lambda x: isinstance(x, torch.Tensor))]
+
+    def port_shapes(cache):
+        return [tuple(l.shape) for c in cache["layers"]
+                for l in (c.k, c.v)] + [tuple(cache["pos"].shape)]
+
+    jc = jax.eval_shape(lambda: jax_tfm.init_cache(jcfg, 2, 32))
+    assert port_shapes(tfm.init_cache(cfg, 2, 32, device=CPU)) == shapes(jc)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), CPU)
+    toks = torch.zeros((2, 8), dtype=torch.int64)
+    jp = jax.eval_shape(lambda: jax_tfm.init_params(jcfg,
+                                                    jax.random.PRNGKey(0)))
+    jlg, jc = jax.eval_shape(lambda p: jax_tfm.prefill(
+        p, jcfg, jnp.zeros((2, 8), jnp.int32), cache_len=32), jp)
+    with torch.no_grad():
+        lg, cache = tfm.prefill(params, cfg, toks, cache_len=32)
+        assert tuple(lg.shape) == jlg.shape
+        assert port_shapes(cache) == shapes(jc)
+        lg, cache = tfm.decode_step(params, cfg, toks[:, :1], cache)
+        assert tuple(lg.shape) == jlg.shape and int(cache["pos"]) == 9
+        paged = pc.init_paged_cache(cfg, 2, 32, kv_bits=4, device=CPU)
+        lg, paged = tfm.prefill_chunk(params, cfg, toks[:1].repeat(1, 2),
+                                      paged, 0, 0, 16)
+        assert tuple(lg.shape) == (1, 1, cfg.vocab)
+    jpaged = jax.eval_shape(lambda: jax_pc.init_paged_cache(jcfg, 2, 32,
+                                                            kv_bits=4))
+    for mine, ref in zip(paged["layers"], jpaged["layers"]):
+        assert tuple(mine.kc.shape) == (ref.kc.shape[0] + 1,
+                                        *ref.kc.shape[1:])
+        assert tuple(mine.tail_k.shape) == ref.tail_k.shape
+        assert tuple(mine.page_table.shape) == ref.page_table.shape
     moe_cfg = get_config("granite-moe-1b-a400m").reduced()
     jp = jax_tfm.init_params(jax_get_config("granite-moe-1b-a400m").reduced(),
                              jax.random.PRNGKey(0))
