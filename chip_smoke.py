@@ -3,7 +3,7 @@
 
     PYTHONPATH=src python3 chip_smoke.py
 
-Builds the kernels from src/repro_torch/csrc, then runs twenty-four phases,
+Builds the kernels from src/repro_torch/csrc, then runs twenty-six phases,
 each printing one JSON line (the at-scale phases one per run); a failed
 check exits nonzero.
 
@@ -134,6 +134,17 @@ check exits nonzero.
                  bits exact; an MoE's tokens whose experts differ from the
                  CPU's counted (the bounds held on the steps before the
                  first); one line per arch
+  ranks_small    the trainer's rank path (dist/trainer.py on
+                 torch.distributed) on train_small's reduced granite, 4
+                 agents, 10 steps, in a one-rank NCCL group (every round
+                 local) against the no-group path on the card: LEAD 2-bit,
+                 allreduce and LEAD on hierarchical(ring(2), 2), bit for
+                 bit, K4 = K2 = K3 = one per leaf per step; on a machine
+                 with two or more cards also one rank per card (2 or 4
+                 ranks, chip_smoke.py --rank-worker), held against the
+                 one-rank run, and train_at_scale's granite at one agent
+                 per card timed with the bytes handed to isend; with one
+                 card the line says the cross-card run was not made
   train_at_scale, moe_at_scale, recurrent_at_scale, audio_at_scale
                  the trainer at each arch's published width, one function
                  over TRAIN_AT_SCALE: granite-3-2b cut to 2 layers (12
@@ -150,7 +161,17 @@ check exits nonzero.
                  the loss falling, the dual sum below 1e-3 x 0.03 / eta,
                  peak allocated below 75 GB; each with
                  its ms/step, stage sums, gradient FLOP/s and peak memory,
-                 and the MoE's routing (pairs dropped, heaviest expert)
+                 and the MoE's routing (pairs dropped, heaviest expert);
+                 train_at_scale's granite again through the rank path in
+                 a one-rank NCCL group (train_at_scale/ranks): the same
+                 steps, its ms/step beside the no-group path's, the final
+                 state bit for bit
+  ckpt_at_scale  checkpoint and resume: whisper-tiny whole, 4 agents, 2-bit
+                 LEAD, 2 steps, the 3.6 GB state saved (repro_torch
+                 .checkpoint, the reference's npz format), restored into a
+                 fresh state and run 2 more steps: bit for bit the
+                 straight 4-step run; the file's GB, save and restore
+                 seconds
   serve_small    serving (serve/, the models' prefill and decode) on the
                  card against the CPU for every registry arch at .reduced()
                  size (xlstm at 6 layers, recurrentgemma at 3): a 20-token
@@ -1945,7 +1966,8 @@ TRAIN_SMALL_ARCHS = (("granite-3-2b", {}, False),
 TRAIN_AT_SCALE = {
     "train_at_scale": dict(arch="granite-3-2b", n_layers=2, agents=4,
                            optimizer="sgd", eta=TRAIN_ETA, leaves=12,
-                           params=322_983_936, bits=989_138_304),
+                           params=322_983_936, bits=989_138_304,
+                           ranks=True),
     "moe_at_scale": dict(arch="granite-moe-1b-a400m", n_layers=4, agents=4,
                          optimizer="sgd", eta=TRAIN_ETA, leaves=13,
                          params=314_719_232, bits=963_827_648),
@@ -2263,6 +2285,404 @@ def phase_train_small(dev):
             for arch, kw, restart in TRAIN_SMALL_ARCHS}
 
 
+# -- the trainer across ranks (torch.distributed) and checkpoints -------------------
+
+RANKS_SMALL_STEPS = 10
+RANKS_RTOL = 1e-6           # rank path vs no group where the sums differ
+RANKS_MAX_CARDS = 4
+# ranks_small's runs: DistConfig fields; "hier" on hierarchical(ring(2), 2)
+RANKS_SMALL_RUNS = {"lead_2bit": dict(algorithm="lead"),
+                    "allreduce": dict(algorithm="allreduce"),
+                    "hier": dict(algorithm="lead", topology="hier")}
+CKPT_ARCH, CKPT_STEPS = "whisper-tiny", 2
+
+
+class OneRankGroup:
+    """A one-rank NCCL process group (a FileStore in a temporary
+    directory) and its (1, 1) rank mesh, for the trainer's rank path on
+    one card; destroyed on exit."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def __enter__(self):
+        import tempfile
+
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_mesh
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+        torch.cuda.set_device(self.dev)
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(self.dir, "store"), 1),
+            rank=0, world_size=1)
+        return make_mesh((1, 1))
+
+    def __exit__(self, *exc):
+        import shutil
+
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _dist_config(kw):
+    from repro_torch.core import topology
+    from repro_torch.dist.trainer import DistConfig
+
+    kw = dict(kw)
+    if kw.get("topology") == "hier":
+        kw["topology"] = topology.hierarchical(topology.ring(2), 2)
+    return DistConfig(**kw)
+
+
+def _state_gap(a, b):
+    """(bit-identical, max |a - b| over b's largest |x|) of two
+    TrainStates' params and algo fields."""
+    from repro_torch.utils.tree import tree_leaves
+
+    la = tree_leaves((a.params, a.algo))
+    lb = tree_leaves((b.params, b.algo))
+    same = all(torch.equal(x, y.to(x.device)) for x, y in zip(la, lb))
+    scale = max(float(l.abs().max()) for l in tree_leaves(b.params))
+    gap = max(max_abs(x, y.to(x.device)) for x, y in zip(la, lb)) / scale
+    return same, gap
+
+
+def _train_run(cfg, dc, dev, batches, mesh=None, seed=0, warmup=0,
+               on_step=None):
+    """init_train_state and len(batches) steps of make_train_step on `dev`
+    (the rank path when `mesh`): (state, metrics, launches, ms/step by
+    the host clock), the first `warmup` steps untimed and uncounted;
+    on_step() after each step."""
+    from repro_torch.dist.sharding import train_batch_rows
+    from repro_torch.dist.trainer import (init_train_state, layout_of,
+                                          make_train_step)
+    from repro_torch.kernels import cuda_lib
+
+    A = TRAIN_AGENTS
+    lay = layout_of(cfg, mesh, A)
+    st = init_train_state(cfg, A, dc, torch.Generator(dev).manual_seed(seed),
+                          dev, mesh=mesh)
+    step = make_train_step(cfg, A, dc, dev, mesh=mesh)
+    metrics = []
+    for i, b in enumerate(batches):
+        if i == warmup:
+            torch.cuda.synchronize()
+            cuda_lib.reset_launch_counts()
+            t0 = time.perf_counter()
+        st, m = step(st, train_batch_rows(lay, b), 0, step=i)
+        metrics.append(m)
+        if on_step is not None:
+            on_step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (len(batches) - warmup)
+    return st, metrics, cuda_lib.launch_counts(), ms
+
+
+def _cross_card_run(n_cards, what):
+    """One run with one rank per card on n_cards cards (chip_smoke.py
+    --rank-worker, NCCL over a FileStore; `what` is "small" or
+    "at_scale", see rank_worker): rank 0's json, with the gathered state
+    of a "small" run."""
+    import shutil
+    import tempfile
+    from types import SimpleNamespace
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([os.path.join(ROOT, "src"),
+                                         env.get("PYTHONPATH", "")])
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--rank-worker", str(r), str(n_cards), tmp,
+                               what],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(n_cards)]
+    errs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            if p.returncode:
+                errs.append(err[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    check(not errs, f"ranks_small {what} across {n_cards} cards: "
+          + "\n".join(errs))
+    with open(os.path.join(tmp, "rank0.json")) as f:
+        res = json.load(f)
+    if what == "small":
+        res["state"] = SimpleNamespace(**torch.load(
+            os.path.join(tmp, "state.pt")))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+class SendSpy:
+    """Counts what every batch_isend_irecv inside its with block hands to
+    isend: [(calls, bytes)] per step, as step() calls mark_step."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.steps, self._dist = [[0, 0]], dist
+        self._orig = dist.batch_isend_irecv
+        spy = self
+
+        def batch_isend_irecv(ops):
+            spy.steps[-1][0] += 1
+            spy.steps[-1][1] += sum(
+                op.tensor.numel() * op.tensor.element_size()
+                for op in ops if op.op is dist.isend)
+            return spy._orig(ops)
+
+        dist.batch_isend_irecv = batch_isend_irecv
+        return self
+
+    def mark_step(self):
+        self.steps.append([0, 0])
+
+    def __exit__(self, *exc):
+        self._dist.batch_isend_irecv = self._orig
+
+
+def rank_worker(rank, world, tmp, what):
+    """One rank of a cross-card run: cuda:rank, NCCL, a (world, 1) mesh
+    over TRAIN_AGENTS agents, 2-bit LEAD on ring(4).  "small": the
+    ranks_small run (reduced granite, RANKS_SMALL_STEPS steps), rank 0
+    writing the gathered state; "at_scale": train_at_scale's granite (2
+    layers, batch 2 x seq 128), one warm-up step and TRAIN_STEPS timed,
+    with the bytes each step hands to isend."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import LMStreamConfig
+    from repro_torch.dist.trainer import layout_of
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = torch.device(f"cuda:{rank}")
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), world),
+        rank=rank, world_size=world)
+    dc = _dist_config(RANKS_SMALL_RUNS["lead_2bit"])
+    whole = None
+    try:
+        mesh = make_mesh((world, 1))
+        if what == "small":
+            cfg = get_config("granite-3-2b").reduced()
+            ds = LMStreamConfig(vocab=cfg.vocab, seq_len=32,
+                                batch_per_agent=2, n_agents=TRAIN_AGENTS)
+            batches = _train_batches(cfg, ds, RANKS_SMALL_STEPS, dev)
+            st, metrics, launches, ms = _train_run(cfg, dc, dev, batches,
+                                                   mesh)
+            # NCCL gathers on the card; rank 0 holds every agent's rows
+            whole = layout_of(cfg, mesh, TRAIN_AGENTS).gather(
+                st._replace(opt=()))
+            sends = None
+        else:
+            cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=2)
+            ds = LMStreamConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                batch_per_agent=TRAIN_BATCH,
+                                n_agents=TRAIN_AGENTS, seed=0)
+            batches = _train_batches(cfg, ds, TRAIN_STEPS + 1, dev)
+            with SendSpy() as spy:
+                _, metrics, launches, ms = _train_run(cfg, dc, dev, batches,
+                                                      mesh, warmup=1,
+                                                      on_step=spy.mark_step)
+            sends = spy.steps[1:-1]
+        bits = [float(m["bits_per_agent"]) for m in metrics]
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        if whole is not None:
+            whole = _state_to(whole, "cpu")
+            torch.save({"params": whole.params, "algo": whole.algo},
+                       os.path.join(tmp, "state.pt"))
+        with open(os.path.join(tmp, "rank0.json"), "w") as f:
+            json.dump({"ms_per_step": ms, "launches": launches,
+                       "bits": bits, "sends": sends}, f)
+    return 0
+
+
+def phase_ranks_small(dev, smi):
+    """The trainer's rank path (dist/trainer.py on torch.distributed) on
+    the card: train_small's reduced granite-3-2b, 4 agents, batch 2 x seq
+    32, RANKS_SMALL_STEPS steps, in a one-rank NCCL group (its (1, 1)
+    mesh holds all 4 agents, so every round is local) against the
+    no-group path on the card, for LEAD 2-bit, allreduce and LEAD on
+    hierarchical(ring(2), 2): bit for bit (the two paths sum in the same
+    order), else within RANKS_RTOL of the state's scale; bits and
+    grad_norm equal; K4 = K2 = K3 = one per leaf per step on LEAD's runs,
+    none on allreduce's, on both paths.  With two or more cards, the LEAD
+    run also with one rank per card (2 or 4 ranks, chip_smoke.py
+    --rank-worker), held against the one-rank run the same way; else the
+    line says the cross-card run was not made."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import LMStreamConfig
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config("granite-3-2b").reduced()
+    ds = LMStreamConfig(vocab=cfg.vocab, seq_len=32, batch_per_agent=2,
+                        n_agents=TRAIN_AGENTS)
+    batches = _train_batches(cfg, ds, RANKS_SMALL_STEPS, dev)
+    n_leaves = None
+    out, launches_by_run, rank_states = {}, {}, {}
+    with OneRankGroup(dev) as mesh:
+        for name, kw in RANKS_SMALL_RUNS.items():
+            dc = _dist_config(kw)
+            runs = {path: _train_run(cfg, dc, dev, batches, m)
+                    for path, m in (("no_group", None), ("rank", mesh))}
+            (s0, m0, l0, ms0), (s1, m1, l1, ms1) = runs["no_group"], \
+                runs["rank"]
+            n_leaves = len(tree_leaves(s0.params))
+            per = n_leaves * RANKS_SMALL_STEPS
+            want = ({} if kw["algorithm"] == "allreduce" else
+                    {"quantize_encode": per, "quantize_decode": per,
+                     "lead_update": per})
+            expect_launches(l0, want, f"ranks_small {name} no group")
+            expect_launches(l1, want, f"ranks_small {name} rank path")
+            same, gap = _state_gap(s1, s0)
+            check(same or gap <= RANKS_RTOL,
+                  f"ranks_small {name}: rank path vs no group {gap}")
+            for k in m0[0]:
+                a = torch.stack([m[k] for m in m0]).cpu()
+                b = torch.stack([m[k] for m in m1]).cpu()
+                tol = 0 if k != "grad_norm" else RANKS_RTOL
+                check(bool(((a - b).abs() <= tol * a.abs()).all()),
+                      f"ranks_small {name}: {k} {a.tolist()} {b.tolist()}")
+            out[name] = {"bit_identical": same, "gap": gap,
+                         "ms_per_step_no_group": ms0,
+                         "ms_per_step_rank": ms1, "launches_rank": l1,
+                         "bits_per_agent": float(m1[0].get(
+                             "bits_per_agent", 0.0))}
+            launches_by_run[name] = l1
+            rank_states[name] = _state_to(s1, "cpu")
+            del runs, s0, s1
+    cards = torch.cuda.device_count()
+    n_cards = min(cards, RANKS_MAX_CARDS)
+    n_cards = n_cards if n_cards in (2, 4) else (2 if cards >= 2 else 1)
+    if n_cards >= 2:
+        res = _cross_card_run(n_cards, "small")
+        same, gap = _state_gap(res["state"], rank_states["lead_2bit"])
+        check(same or gap <= RANKS_RTOL,
+              f"ranks_small across {n_cards} cards: {gap}")
+        # on ring(4) over 2 or 4 ranks, both rounds deliver a remote
+        # payload to each rank: K2 decodes its own and one per round
+        small = n_leaves * RANKS_SMALL_STEPS
+        expect_launches(res["launches"], {
+            "quantize_encode": small, "quantize_decode": 3 * small,
+            "lead_update": small}, f"ranks_small across {n_cards} cards")
+        big = _cross_card_run(n_cards, "at_scale")
+        per = TRAIN_AT_SCALE["train_at_scale"]["leaves"] * TRAIN_STEPS
+        expect_launches(big["launches"], {
+            "quantize_encode": per, "quantize_decode": 3 * per,
+            "lead_update": per}, f"train_at_scale across {n_cards} cards")
+        check(big["bits"] == [TRAIN_AT_SCALE["train_at_scale"]["bits"]]
+              * (TRAIN_STEPS + 1), f"at_scale across cards: {big['bits']}")
+        out["cross_card"] = {
+            "cards": n_cards, "bit_identical": same, "gap": gap,
+            "ms_per_step": res["ms_per_step"],
+            "launches_rank0": res["launches"],
+            "train_at_scale": {
+                "ms_per_step": big["ms_per_step"],
+                "launches_rank0": big["launches"],
+                "isend_calls_and_bytes_per_step_rank0": big["sends"]}}
+    else:
+        out["cross_card"] = ("not made: this machine has one card "
+                             "(NCCL takes one rank per card)")
+        print("ranks_small: the cross-card run was not made (one card)",
+              file=sys.stderr)
+    emit({"phase": "ranks_small", "arch": cfg.name, "n_agents": TRAIN_AGENTS,
+          "steps": RANKS_SMALL_STEPS, "leaves": n_leaves, "nvidia_smi": smi,
+          **out})
+    return launches_by_run
+
+
+def phase_ckpt_at_scale(dev, smi):
+    """Checkpoint and resume at scale: whisper-tiny whole (4 encoder and 4
+    decoder layers, 56,357,380 parameters per agent), 4 agents, 2-bit LEAD
+    (SGD at eta 0.03, batch 2 x seq 128 and the audio stub).  CKPT_STEPS
+    steps, checkpoint.save (params, h, hw and d of every agent), a fresh
+    state of another seed restored from the file (equal to the saved state
+    bit for bit), CKPT_STEPS more steps: the result equals an uninterrupted
+    run of 2 x CKPT_STEPS steps bit for bit.  Prints the file's GB and the
+    save and restore seconds; the directory is deleted."""
+    import shutil
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import LMStreamConfig
+    from repro_torch.dist.trainer import init_train_state, make_train_step
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config(CKPT_ARCH)
+    A = TRAIN_AGENTS
+    dc = _dist_config({"algorithm": "lead"})
+    ds = LMStreamConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                        batch_per_agent=TRAIN_BATCH, n_agents=A, seed=0)
+    batches = _train_batches(cfg, ds, 2 * CKPT_STEPS, dev)
+    step = make_train_step(cfg, A, dc, dev)
+
+    def fresh(seed):
+        return init_train_state(cfg, A, dc,
+                                torch.Generator(dev).manual_seed(seed), dev)
+
+    def run(st, lo, hi):
+        for i in range(lo, hi):
+            st, _ = step(st, batches[i], 0, step=i)
+        return st
+
+    cuda_lib.reset_launch_counts()
+    straight = _state_to(run(fresh(0), 0, 2 * CKPT_STEPS), "cpu")
+    launches = cuda_lib.launch_counts()
+    half = run(fresh(0), 0, CKPT_STEPS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save(tmp, CKPT_STEPS, half)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        other = fresh(1)
+        t0 = time.perf_counter()
+        back, at = ckpt.restore(tmp, other)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del other
+    same_restore, _ = _state_gap(back, half)
+    check(at == CKPT_STEPS and same_restore and int(back.step) == CKPT_STEPS,
+          f"ckpt_at_scale: restored step {at} differs from the saved state")
+    del half
+    resumed = run(back, CKPT_STEPS, 2 * CKPT_STEPS)
+    same, gap = _state_gap(resumed, straight)
+    check(same, f"ckpt_at_scale: resumed run differs from the straight "
+          f"run ({gap} of the state's scale)")
+    n_params = sum(l[0].numel() for l in tree_leaves(resumed.params))
+    emit({"phase": "ckpt_at_scale", "arch": cfg.name, "n_agents": A,
+          "params_per_agent": n_params, "steps": [CKPT_STEPS, CKPT_STEPS],
+          "file_GB": size / 1e9, "save_s": save_s, "restore_s": restore_s,
+          "save_GB_per_s": size / 1e9 / save_s,
+          "restore_GB_per_s": size / 1e9 / restore_s,
+          "bit_identical": same, "launches_straight": launches,
+          "nvidia_smi": smi})
+    del resumed, straight, back
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_train_at_scale(dev, smi, flops, what):
     """The trainer at scale, TRAIN_AT_SCALE[what]: the arch at its published
     width, depth cut to the spec's n_layers, its agents on a ring, LEAD on
@@ -2279,7 +2699,10 @@ def phase_train_at_scale(dev, smi, flops, what):
     over its per-leaf marks), the gradient's operations
     (train_gradient_flop) and its rate against the card's fp32 peak
     `flops`, the peak allocated and `smi`; for an MoE the routing of batch
-    0 on the final weights (pairs dropped, the heaviest expert's load)."""
+    0 on the final weights (pairs dropped, the heaviest expert's load).
+    A spec with ``ranks`` runs again through the rank path
+    (train_at_scale_ranks).  Returns (launches, the rank path's launches
+    or None)."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -2409,8 +2832,63 @@ def phase_train_at_scale(dev, smi, flops, what):
                                                 float(norms[-1])],
           "dual_sum_max": max(dual), "dual_sum_bound": dual_bound,
           **routing})
-    del state, step, batches, extra, metrics
+    rank_launches = None
+    if spec.get("ranks"):
+        held = _state_to(state, "cpu")
+        del state, step
+        torch.cuda.empty_cache()
+        rank_launches = train_at_scale_ranks(
+            cfg, dc, dev, [b0] + batches + extra, held,
+            wall * 1e3 / TRAIN_STEPS, what, smi, n_leaves)
+        del held
+    else:
+        del state, step
+    del batches, extra, metrics
     torch.cuda.empty_cache()
+    return launches, rank_launches
+
+
+def train_at_scale_ranks(cfg, dc, dev, batches, held, no_group_ms, what,
+                         smi, n_leaves):
+    """`what`'s run again through the rank path in a one-rank NCCL group
+    (its (1, 1) mesh holds every agent): the same warm-up step, the same
+    TRAIN_STEPS timed steps by the host clock, the two steps after; the
+    final state against the no-group run's `held` (on the host), bit for
+    bit or within RANKS_RTOL of its scale; launches as the no-group
+    path's."""
+    from repro_torch.dist.trainer import init_train_state, make_train_step
+    from repro_torch.kernels import cuda_lib
+
+    A = TRAIN_AGENTS
+    with OneRankGroup(dev) as mesh:
+        state = init_train_state(cfg, A, dc,
+                                 torch.Generator(dev).manual_seed(0), dev,
+                                 mesh=mesh)
+        step = make_train_step(cfg, A, dc, dev, mesh=mesh)
+        state, _ = step(state, batches[0], 0, step=0)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(1, TRAIN_STEPS + 1):
+            state, _ = step(state, batches[i], 0, step=i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+        launches = cuda_lib.launch_counts()
+        for i in range(TRAIN_STEPS + 1, len(batches)):
+            state, _ = step(state, batches[i], 0, step=i)
+        same, gap = _state_gap(state, held)
+        del state, step
+    torch.cuda.empty_cache()
+    per = n_leaves * TRAIN_STEPS
+    expect_launches(launches, {"quantize_encode": per,
+                               "quantize_decode": per, "lead_update": per},
+                    f"{what} rank path")
+    check(same or gap <= RANKS_RTOL,
+          f"{what} rank path vs no group: {gap} of the state's scale")
+    emit({"phase": f"{what}/ranks", "world": 1, "bit_identical": same,
+          "gap": gap, "ms_per_step_rank": ms,
+          "ms_per_step_no_group": no_group_ms, "launches": launches,
+          "nvidia_smi": smi})
     return launches
 
 
@@ -2927,8 +3405,14 @@ def main():
                  for phase in NEW_PATHS}
     multiwire = phase_multiwire_at_scale(dev, lead_trace, smi)
     phase_train_small(dev)
-    train = {what: phase_train_at_scale(dev, smi, flops, what)
-             for what in TRAIN_AT_SCALE}
+    ranks = {f"ranks_small/{k}": v
+             for k, v in phase_ranks_small(dev, smi).items()}
+    train = {}
+    for what in TRAIN_AT_SCALE:
+        train[what], rank_path = phase_train_at_scale(dev, smi, flops, what)
+        if rank_path is not None:
+            ranks[f"{what}/ranks"] = rank_path
+    ranks["ckpt_at_scale"] = phase_ckpt_at_scale(dev, smi)
     serve = {"serve_small": phase_serve_small(dev)}
     serve.update({what: phase_serve_at_scale(dev, smi, what)
                   for what in SERVE_AT_SCALE})
@@ -2954,6 +3438,7 @@ def main():
             **{f"multiwire_at_scale/{w}": v[k]
                for w, v in multiwire.items()},
             **{what: v[k] for what, v in train.items()},
+            **{what: v.get(k, 0) for what, v in ranks.items()},
             **{what: v.get(k, 0) for what, v in serve.items()}}
         if k in hot_path:
             r["hot_path_512"] = hot_path[k]
@@ -2966,4 +3451,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(int(sys.argv[2]), int(sys.argv[3]),
+                             sys.argv[4], sys.argv[5]))
     sys.exit(main())

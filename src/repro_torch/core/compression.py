@@ -111,7 +111,8 @@ def wire_seed(seed: int, j: int) -> int:
     return _mix32(h ^ ((int(j) * _GOLD + 0x85EBCA6B) & _MASK32))
 
 
-def counter_bits(shape, seed, device: DeviceLike = None) -> torch.Tensor:
+def counter_bits(shape, seed, device: DeviceLike = None,
+                 offset: int = 0) -> torch.Tensor:
     """The 24-bit integers (int64, in [0, 2^24)) under ``fast_uniform``:
     the murmur3-style integer finalizer of
     ``src/repro/core/engines/base.py::fast_uniform`` over an iota, keyed by
@@ -119,7 +120,9 @@ def counter_bits(shape, seed, device: DeviceLike = None) -> torch.Tensor:
     Bit for bit the reference's stream, on the CPU and the card alike: the
     uint32 arithmetic runs in int64 masked to 32 bits (int64 products wrap
     modulo 2^64, so their low 32 bits are the uint32 product's).  Updates
-    in place to hold the temporaries to two int64 planes."""
+    in place to hold the temporaries to two int64 planes.  ``offset``
+    starts the iota there: the elements from `offset` on of a larger plane
+    with the same seed (a rank's rows of the agents' plane)."""
     m = 1
     for s in shape:
         m *= int(s)
@@ -129,7 +132,7 @@ def counter_bits(shape, seed, device: DeviceLike = None) -> torch.Tensor:
     else:
         dev = resolve_device(device)
         s = torch.full((), int(seed) & _MASK32, dtype=torch.int64, device=dev)
-    z = torch.arange(m, dtype=torch.int64, device=dev)
+    z = torch.arange(offset, offset + m, dtype=torch.int64, device=dev)
     z += (s * 0x9E3779B9) & _MASK32
     z &= _MASK32
     z *= 0x85EBCA6B
@@ -142,11 +145,12 @@ def counter_bits(shape, seed, device: DeviceLike = None) -> torch.Tensor:
     return z.reshape(shape)
 
 
-def fast_uniform(shape, seed, device: DeviceLike = None) -> torch.Tensor:
+def fast_uniform(shape, seed, device: DeviceLike = None,
+                 offset: int = 0) -> torch.Tensor:
     """Counter-based U[0,1) dither: ``counter_bits`` (the top 24 bits of
     the reference's counter hash) over 2^24, so the f32 mantissa covers
-    them exactly."""
-    z = counter_bits(shape, seed, device)
+    them exactly; ``offset`` as there."""
+    z = counter_bits(shape, seed, device, offset)
     u = z.to(torch.float32)
     del z
     return u.mul_(1.0 / (1 << 24))

@@ -1,3 +1,4 @@
 """Distributed runtime: the decentralized trainer (every engine of the
 registry, or the allreduce reference, over stacked model pytrees with codes
-on the wire), all agents on one device."""
+on the wire), the agents on one device or split over torch.distributed
+ranks (sharding.py)."""
