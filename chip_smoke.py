@@ -3,9 +3,9 @@
 
     PYTHONPATH=src python3 chip_smoke.py
 
-Builds the kernels from src/repro_torch/csrc, then runs twenty-six phases,
-each printing one JSON line (the at-scale phases one per run); a failed
-check exits nonzero.
+Builds the kernels from src/repro_torch/csrc, then runs twenty-seven
+phases, each printing one JSON line (the at-scale phases one per run); a
+failed check exits nonzero.
 
   env            card name and power limit, torch and CUDA versions, build time
   kernels        K1 lead_diff_encode, K2 quantize decode (each at b = 2, 4, 7)
@@ -171,7 +171,12 @@ check exits nonzero.
                  .checkpoint, the reference's npz format), restored into a
                  fresh state and run 2 more steps: bit for bit the
                  straight 4-step run; the file's GB, save and restore
-                 seconds
+                 seconds; then the same through the trainer's rank path
+                 in a one-rank NCCL group (ckpt_at_scale/ranks), the file
+                 written and read through its layout: equal to the first
+                 file leaf for leaf, resumed bit for bit, and the device
+                 memory save and restore allocate above the live state at
+                 most the largest stacked leaf's bytes
   serve_small    serving (serve/, the models' prefill and decode) on the
                  card against the CPU for every registry arch at .reduced()
                  size (xlstm at 6 layers, recurrentgemma at 3): a 20-token
@@ -199,11 +204,25 @@ check exits nonzero.
                  tokens/s and its cache report; then the exact engine on
                  the first 4 / 1 requests against the contiguous
                  single-sequence path (equal up to a near-tie)
+  serve_at_scale/ranks
+                 granite-3-2b whole through dist/serve.py in a one-rank
+                 NCCL group: 16 lanes of a 256-token prompt, make_prefill,
+                 paged_from_rows and 32 steps of make_paged_decode's fn
+                 (4-bit pages, block 512, a 2,048-token cache; one
+                 all-gather of the written page rows per layer) in
+                 lockstep with the no-group prefill and decode_step:
+                 logits, greedy tokens and pools bit for bit at every
+                 step, K4 = K2 = 80 per decode step; each path's ms per
+                 step and the bytes gathered per step; with 2 or 4 cards
+                 also one rank per card (chip_smoke.py
+                 --serve-rank-worker): every rank's pools identical, each
+                 lane's greedy stream the one-card run's up to a near-tie
 
-The line before the last lists every kernel with its launches on the main
-path, its error against the plain version and its times; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA device the script exits
-nonzero before printing anything.
+The script's seconds and the card's name and power limit are printed
+before the kernels line.  The line before the last lists every kernel
+with its launches on the main path, its error against the plain version
+and its times; the last line is {"ok": true, "device": {...}}.  Without
+a CUDA device the script exits nonzero before printing anything.
 """
 import json
 import os
@@ -2053,8 +2072,10 @@ def train_gradient_flop(cfg, n_agents, batch, seq):
 
 
 def _tree_to(tree, device):
+    """Every leaf (a tensor, or a numpy array as a gather leaves it) as a
+    tensor on `device`."""
     from repro_torch.utils.tree import tree_map
-    return tree_map(lambda l: l.to(device), tree)
+    return tree_map(lambda l: torch.as_tensor(l).to(device), tree)
 
 
 def _state_to(state, device):
@@ -2484,7 +2505,7 @@ def rank_worker(rank, world, tmp, what):
             batches = _train_batches(cfg, ds, RANKS_SMALL_STEPS, dev)
             st, metrics, launches, ms = _train_run(cfg, dc, dev, batches,
                                                    mesh)
-            # NCCL gathers on the card; rank 0 holds every agent's rows
+            # rank 0 gathers every agent's rows into host arrays
             whole = layout_of(cfg, mesh, TRAIN_AGENTS).gather(
                 st._replace(opt=()))
             sends = None
@@ -2607,6 +2628,84 @@ def phase_ranks_small(dev, smi):
     return launches_by_run
 
 
+def _ckpt_run(cfg, dc, dev, batches, tmp, mesh=None):
+    """ckpt_at_scale's run (the rank path on `mesh` when given): 2 x
+    CKPT_STEPS steps straight; CKPT_STEPS steps, checkpoint.save into
+    `tmp` (with the layout on a mesh), a fresh state of another seed
+    restored from it (equal to the saved state bit for bit), CKPT_STEPS
+    more.  Returns the straight and resumed states on the host, the
+    straight run's launches, the file, the save and restore seconds and
+    the device memory each allocated above the live state (peak minus
+    what was allocated before the save; peak minus what was allocated
+    after the restore, its result included)."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.dist.sharding import train_batch_rows
+    from repro_torch.dist.trainer import (init_train_state, layout_of,
+                                          make_train_step)
+    from repro_torch.kernels import cuda_lib
+
+    A = TRAIN_AGENTS
+    lay = layout_of(cfg, mesh, A)
+    step = make_train_step(cfg, A, dc, dev, mesh=mesh)
+
+    def fresh(seed):
+        return init_train_state(cfg, A, dc,
+                                torch.Generator(dev).manual_seed(seed), dev,
+                                mesh=mesh)
+
+    def run(st, lo, hi):
+        for i in range(lo, hi):
+            st, _ = step(st, train_batch_rows(lay, batches[i]), 0, step=i)
+        return st
+
+    cuda_lib.reset_launch_counts()
+    straight = _state_to(run(fresh(0), 0, 2 * CKPT_STEPS), "cpu")
+    launches = cuda_lib.launch_counts()
+    half = run(fresh(0), 0, CKPT_STEPS)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    path = ckpt.save(tmp, CKPT_STEPS, half, layout=lay)
+    save_s = time.perf_counter() - t0
+    save_extra = torch.cuda.max_memory_allocated(dev) - before
+    other = fresh(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    back, at = ckpt.restore(tmp, other, layout=lay)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restore_extra = (torch.cuda.max_memory_allocated(dev)
+                     - torch.cuda.memory_allocated(dev))
+    del other
+    same_restore, _ = _state_gap(back, half)
+    check(at == CKPT_STEPS and same_restore and int(back.step) == CKPT_STEPS,
+          f"ckpt_at_scale: restored step {at} differs from the saved state")
+    del half
+    resumed = _state_to(run(back, CKPT_STEPS, 2 * CKPT_STEPS), "cpu")
+    del back
+    torch.cuda.empty_cache()
+    return {"straight": straight, "resumed": resumed, "launches": launches,
+            "path": path, "save_s": save_s, "restore_s": restore_s,
+            "save_extra": save_extra, "restore_extra": restore_extra}
+
+
+def _same_files(a, b):
+    """Two checkpoint files hold the same path keys and leaves (dtype,
+    shape and every value), compared one leaf at a time."""
+    with np.load(a) as x, np.load(b) as y:
+        if sorted(x.files) != sorted(y.files) or \
+                json.loads(x["__meta__"].item()) != \
+                json.loads(y["__meta__"].item()):
+            return False
+        for k in x.files:
+            u, v = x[k], y[k]
+            if u.dtype != v.dtype or not np.array_equal(u, v):
+                return False
+    return True
+
+
 def phase_ckpt_at_scale(dev, smi):
     """Checkpoint and resume at scale: whisper-tiny whole (4 encoder and 4
     decoder layers, 56,357,380 parameters per agent), 4 agents, 2-bit LEAD
@@ -2614,16 +2713,20 @@ def phase_ckpt_at_scale(dev, smi):
     steps, checkpoint.save (params, h, hw and d of every agent), a fresh
     state of another seed restored from the file (equal to the saved state
     bit for bit), CKPT_STEPS more steps: the result equals an uninterrupted
-    run of 2 x CKPT_STEPS steps bit for bit.  Prints the file's GB and the
-    save and restore seconds; the directory is deleted."""
+    run of 2 x CKPT_STEPS steps bit for bit.  Then ckpt_at_scale/ranks: the
+    same run through the trainer's rank path in a one-rank NCCL group that
+    holds all 4 agents, the file written and read through its layout: the
+    file equal to the first run's leaf for leaf, the resumed run bit for
+    bit the straight one, and the device memory that save and restore
+    allocate above the live state at most the largest stacked leaf's bytes
+    (the tree staged on the host, never on the card).  Prints the file's
+    GB and each run's save and restore seconds and extra memory; the
+    directories are deleted.  Returns each run's launches."""
     import shutil
     import tempfile
 
-    from repro_torch import checkpoint as ckpt
     from repro_torch.configs.registry import get_config
     from repro_torch.data.synthetic import LMStreamConfig
-    from repro_torch.dist.trainer import init_train_state, make_train_step
-    from repro_torch.kernels import cuda_lib
     from repro_torch.utils.tree import tree_leaves
 
     cfg = get_config(CKPT_ARCH)
@@ -2632,55 +2735,47 @@ def phase_ckpt_at_scale(dev, smi):
     ds = LMStreamConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                         batch_per_agent=TRAIN_BATCH, n_agents=A, seed=0)
     batches = _train_batches(cfg, ds, 2 * CKPT_STEPS, dev)
-    step = make_train_step(cfg, A, dc, dev)
-
-    def fresh(seed):
-        return init_train_state(cfg, A, dc,
-                                torch.Generator(dev).manual_seed(seed), dev)
-
-    def run(st, lo, hi):
-        for i in range(lo, hi):
-            st, _ = step(st, batches[i], 0, step=i)
-        return st
-
-    cuda_lib.reset_launch_counts()
-    straight = _state_to(run(fresh(0), 0, 2 * CKPT_STEPS), "cpu")
-    launches = cuda_lib.launch_counts()
-    half = run(fresh(0), 0, CKPT_STEPS)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        path = ckpt.save(tmp, CKPT_STEPS, half)
-        save_s = time.perf_counter() - t0
-        size = os.path.getsize(path)
-        other = fresh(1)
-        t0 = time.perf_counter()
-        back, at = ckpt.restore(tmp, other)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
+        one = _ckpt_run(cfg, dc, dev, batches, os.path.join(tmp, "one"))
+        with OneRankGroup(dev) as mesh:
+            ranks = _ckpt_run(cfg, dc, dev, batches,
+                              os.path.join(tmp, "ranks"), mesh)
+        same_file = _same_files(one["path"], ranks["path"])
+        size = os.path.getsize(one["path"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    del other
-    same_restore, _ = _state_gap(back, half)
-    check(at == CKPT_STEPS and same_restore and int(back.step) == CKPT_STEPS,
-          f"ckpt_at_scale: restored step {at} differs from the saved state")
-    del half
-    resumed = run(back, CKPT_STEPS, 2 * CKPT_STEPS)
-    same, gap = _state_gap(resumed, straight)
-    check(same, f"ckpt_at_scale: resumed run differs from the straight "
-          f"run ({gap} of the state's scale)")
-    n_params = sum(l[0].numel() for l in tree_leaves(resumed.params))
+    largest = max(l.numel() * l.element_size()
+                  for l in tree_leaves(one["straight"]) if l.ndim)
+    n_params = sum(l[0].numel() for l in tree_leaves(one["resumed"].params))
+    out = {}
+    for name, r in (("no_group", one), ("ranks", ranks)):
+        same, gap = _state_gap(r["resumed"], r["straight"])
+        out[name] = {"save_s": r["save_s"], "restore_s": r["restore_s"],
+                     "save_GB_per_s": size / 1e9 / r["save_s"],
+                     "restore_GB_per_s": size / 1e9 / r["restore_s"],
+                     "save_extra_bytes": r["save_extra"],
+                     "restore_extra_bytes": r["restore_extra"],
+                     "bit_identical": same, "launches_straight":
+                     r["launches"]}
+        check(same, f"ckpt_at_scale {name}: resumed run differs from the "
+              f"straight run ({gap} of the state's scale)")
+    same_paths, _ = _state_gap(ranks["resumed"], one["resumed"])
     emit({"phase": "ckpt_at_scale", "arch": cfg.name, "n_agents": A,
           "params_per_agent": n_params, "steps": [CKPT_STEPS, CKPT_STEPS],
-          "file_GB": size / 1e9, "save_s": save_s, "restore_s": restore_s,
-          "save_GB_per_s": size / 1e9 / save_s,
-          "restore_GB_per_s": size / 1e9 / restore_s,
-          "bit_identical": same, "launches_straight": launches,
-          "nvidia_smi": smi})
-    del resumed, straight, back
+          "file_GB": size / 1e9, "largest_stacked_leaf_bytes": largest,
+          "files_equal": same_file, "ranks_equal_no_group": same_paths,
+          "nvidia_smi": smi, **out})
+    check(same_file, "ckpt_at_scale/ranks: the layout's file differs from "
+          "the one-process file")
+    check(same_paths, "ckpt_at_scale/ranks: the rank path's resumed state "
+          "differs from the no-group path's")
+    check(ranks["save_extra"] <= largest and ranks["restore_extra"] <= largest,
+          f"ckpt_at_scale/ranks: save staged {ranks['save_extra']} and "
+          f"restore {ranks['restore_extra']} bytes on the card above the live "
+          f"state, more than the largest stacked leaf's {largest}")
     torch.cuda.empty_cache()
-    return launches
+    return one["launches"], ranks["launches"]
 
 
 def phase_train_at_scale(dev, smi, flops, what):
@@ -3366,7 +3461,374 @@ def phase_serve_at_scale(dev, smi, what):
     return launches
 
 
+# serve_at_scale/ranks: granite-3-2b whole through dist/serve.py's make_*
+# (make_prefill, paged_from_rows, make_paged_decode) at serve_at_scale's
+# settings, B lanes of one prompt length (pos % page == page - 1 twice per
+# lane in the run: every lane flushes a page at steps 15 and 31), held
+# against the no-group prefill and decode_step; on 2 or 4 cards also one
+# rank per card (chip_smoke.py --serve-rank-worker)
+SERVE_RANKS = dict(arch="granite-3-2b", params=2_634_201_088, batch=16,
+                   prompt=256, steps=32)
+# across cards the lanes' GEMMs run at B / n rows, so logits may round
+# differently: a token may part from the one-card run's only where the
+# one-card top-1 minus top-2 margin is within the bf16 cache's logit bound
+SERVE_RANKS_TIE = SERVE_RTOL[torch.bfloat16]
+
+
+class GatherSpy:
+    """Counts what every all-gather inside its with block is handed:
+    [(calls, bytes)] per step, as the caller calls mark_step."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.steps, self._dist, self._orig = [[0, 0]], dist, {}
+        spy = self
+        for name in ("all_gather_single", "all_gather_into_tensor"):
+            orig = getattr(dist, name, None)
+            if orig is None:
+                continue
+            self._orig[name] = orig
+
+            def gather(out, inp, *a, _orig=orig, **kw):
+                spy.steps[-1][0] += 1
+                spy.steps[-1][1] += inp.numel() * inp.element_size()
+                return _orig(out, inp, *a, **kw)
+
+            setattr(dist, name, gather)
+        return self
+
+    def mark_step(self):
+        self.steps.append([0, 0])
+
+    def __exit__(self, *exc):
+        for name, orig in self._orig.items():
+            setattr(self._dist, name, orig)
+
+
+def _serve_ranks_inputs(dev):
+    """SERVE_RANKS' config, its f32 weights drawn on `dev` from seed 0 and
+    its (B, prompt) counter-hash prompts."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import tree_size
+
+    spec = SERVE_RANKS
+    cfg = get_config(spec["arch"])
+    params = tfm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    check(tree_size(params) == spec["params"],
+          f"serve_at_scale/ranks: {tree_size(params)} parameters")
+    jobs = _serve_jobs(cfg, spec["batch"], spec["prompt"], spec["prompt"], 0)
+    tokens = torch.tensor([p for p, _ in jobs], device=dev)
+    return cfg, params, tokens
+
+
+def _serve_fns(cfg, mesh):
+    """make_prefill's and make_paged_decode's (fn, shardings) on `mesh` at
+    SERVE_RANKS' batch, the cache SERVE_MAX_LEN long."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.dist import serve as dserve
+    from repro_torch.dist.sharding import make_profile
+
+    B = SERVE_RANKS["batch"]
+    prof = make_profile(cfg, mesh.axis_names)
+    pre, _, pre_sh, _ = dserve.make_prefill(
+        cfg, mesh, prof, InputShape("prefill", SERVE_MAX_LEN, B, "prefill"))
+    dec, _, dec_sh, _ = dserve.make_paged_decode(
+        cfg, mesh, prof, InputShape("decode", SERVE_MAX_LEN, B, "decode"),
+        page=SERVE_PAGE, kv_bits=SERVE_BITS)
+    return pre, pre_sh, dec, dec_sh
+
+
+def _pool_digest(cache):
+    """sha256 of every layer's pool bytes, the spare row aside."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for c in cache["layers"]:
+        for n in c.pool_fields:
+            h.update(getattr(c, n)[:-1].contiguous().view(torch.uint8)
+                     .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+class _Timed:
+    """CUDA events around calls and the kernel launches each made."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, fn, *args):
+        from repro_torch.kernels import cuda_lib
+
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        before = cuda_lib.launch_counts()
+        a.record()
+        out = fn(*args)
+        b.record()
+        after = cuda_lib.launch_counts()
+        self.calls.append((a, b, {k: after[k] - before[k] for k in after}))
+        return out
+
+    def ms(self):
+        return statistics.median(a.elapsed_time(b) for a, b, _ in self.calls)
+
+    def launches(self):
+        return [d for _, _, d in self.calls]
+
+
+def serve_rank_worker(rank, world, tmp):
+    """One rank of serve_at_scale/ranks across cards: cuda:rank, NCCL, a
+    (world, 1) mesh, the rank's B / world lanes through make_prefill,
+    paged_from_rows and SERVE_RANKS' steps of make_paged_decode's fn,
+    greedy on its own logits; saves its tokens and logits (on the host),
+    its pools' digest, ms per step and the bytes it handed to each step's
+    all-gathers."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = torch.device(f"cuda:{rank}")
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), world),
+        rank=rank, world_size=world)
+    try:
+        res = _serve_rank_run(dev, make_mesh((world, 1)))
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, os.path.join(tmp, f"serve{rank}.pt"))
+    return 0
+
+
+def _serve_rank_run(dev, mesh):
+    """serve_rank_worker's run on `dev` over `mesh`."""
+    from repro_torch.dist import serve as dserve
+
+    cfg, params, tokens = _serve_ranks_inputs(dev)
+    pre, pre_sh, dec, _ = _serve_fns(cfg, mesh)
+    timed = _Timed()
+    with torch.no_grad(), GatherSpy() as spy:
+        lg, cache = pre(params, dserve.place(tokens, pre_sh["tokens"]))
+        paged = dserve.paged_from_rows(cache, cfg, mesh, SERVE_RANKS["batch"],
+                                       page=SERVE_PAGE, kv_bits=SERVE_BITS)
+        del cache
+        logits = [lg[:, -1].cpu()]
+        for _ in range(SERVE_RANKS["steps"]):
+            spy.mark_step()
+            tok = lg[:, -1].argmax(-1)[:, None]
+            lg, paged = timed(dec, params, tok, paged)
+            logits.append(lg[:, -1].cpu())
+    torch.cuda.synchronize()
+    return {"first": pre_sh["tokens"].start, "logits": logits,
+            "digest": _pool_digest(paged), "ms_per_step": timed.ms(),
+            "launches": timed.launches(), "gathered": spy.steps[1:]}
+
+
+def _serve_cross_cards(n_cards, one_card):
+    """serve_at_scale/ranks with one rank per card on n_cards cards: every
+    rank's pools identical; each lane's greedy stream equal to the one-card
+    run's up to a step where the one-card top-1 minus top-2 margin is
+    within SERVE_RANKS_TIE of the largest |logit|; the logits' gap before
+    each lane's first differing token."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_ranks_")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([os.path.join(ROOT, "src"),
+                                         env.get("PYTHONPATH", "")])
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--serve-rank-worker", str(r), str(n_cards),
+                               tmp], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(n_cards)]
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=600)
+            if p.returncode:
+                errs.append(err[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    check(not errs, f"serve_at_scale/ranks across {n_cards} cards: "
+          + "\n".join(errs))
+    res = [torch.load(os.path.join(tmp, f"serve{r}.pt"))
+           for r in range(n_cards)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    return _hold_cross_cards(res, one_card)
+
+
+def _hold_cross_cards(res, one_card):
+    """_serve_cross_cards' checks of the ranks' results `res`."""
+    n_cards = len(res)
+    ref_logits, margins = one_card["logits"], one_card["margins"]
+    parted, gap, bit_identical = [], 0.0, True
+    prefill_gap = max(max_abs(r["logits"][0], ref_logits[0][
+        r["first"]:r["first"] + r["logits"][0].shape[0]])
+        / float(ref_logits[0].abs().max()) for r in res)
+    for r in res:
+        for j in range(r["logits"][0].shape[0]):
+            lane = r["first"] + j
+            mine = [lg[j] for lg in r["logits"]]
+            want = [lg[lane] for lg in ref_logits]
+            first = next((i for i, (a, b) in enumerate(zip(mine, want))
+                          if int(a.argmax()) != int(b.argmax())), None)
+            held = len(mine) if first is None else first + 1
+            for a, b in zip(mine[:held], want[:held]):
+                bit_identical &= torch.equal(a, b)
+                gap = max(gap, max_abs(a, b) / float(b.abs().max()))
+            if first is not None:
+                m, top = margins[first][lane]
+                parted.append({"lane": lane, "step": first, "margin": m,
+                               "max_logit": top,
+                               "near_tie": m <= SERVE_RANKS_TIE * top})
+    out = {"cards": n_cards,
+           "pools_identical": len({r["digest"] for r in res}) == 1,
+           "logits_bit_identical_before_parting": bit_identical,
+           "logit_gap_before_parting": gap, "prefill_logit_gap": prefill_gap,
+           "tie_bound": SERVE_RANKS_TIE,
+           "lanes_parted": parted,
+           "ms_per_step": [r["ms_per_step"] for r in res],
+           "gathered_calls_and_bytes_per_step": [r["gathered"][0]
+                                                 for r in res],
+           "launches_per_step_rank0": res[0]["launches"][0]}
+    check(out["pools_identical"], f"serve_at_scale/ranks across {n_cards} "
+          f"cards: the ranks' pools differ")
+    check(all(p["near_tie"] for p in parted), f"serve_at_scale/ranks "
+          f"across {n_cards} cards: a stream parts away from a near-tie: "
+          f"{parted}")
+    for r in res:
+        for d in r["launches"]:
+            expect_launches(d, one_card["per_step"], "serve_at_scale/ranks "
+                            f"across {n_cards} cards, a decode step")
+    return out
+
+
+def phase_serve_ranks(dev, smi):
+    """serve_at_scale/ranks: granite-3-2b whole (40 layers, f32 weights
+    drawn on the card), B = 16 lanes of one 256-token counter-hash prompt,
+    page 16, 4-bit KV (block 512), a SERVE_MAX_LEN cache, through
+    dist/serve.py in a one-rank NCCL group - make_prefill, paged_from_rows,
+    then SERVE_RANKS' steps of make_paged_decode's fn (one all-gather of
+    the written page rows per layer) - in lockstep with the no-group
+    prefill, paged_from_contiguous and decode_step on the same weights and
+    prompts, each greedy on its own logits: logits, greedy tokens and every
+    pool tensor (the spare row aside) bit-identical at every step; K4 = K2
+    = two per layer in every decode step on both paths.  Prints each
+    path's ms per decode step (CUDA events, median) and the calls and bytes
+    handed to the all-gathers per step.  With 2 or 4 cards, also one rank
+    per card (_serve_cross_cards); with one, the line says that run was
+    not made.  Returns the rank path's launches in its decode steps."""
+    from repro_torch.dist import serve as dserve
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.paged_cache import paged_from_contiguous
+
+    spec = SERVE_RANKS
+    B = spec["batch"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, params, tokens = _serve_ranks_inputs(dev)
+    per_step = {k: 2 * cfg.n_layers for k in SERVE_KERNELS}
+    one, ranked = _Timed(), _Timed()
+    equal_logits = equal_pools = equal_tokens = 0
+    logits, margins = [], []
+    with OneRankGroup(dev) as mesh, torch.no_grad(), GatherSpy() as spy:
+        pre, pre_sh, dec, dec_sh = _serve_fns(cfg, mesh)
+        lg0, c0 = tfm.prefill(params, cfg, tokens, cache_len=SERVE_MAX_LEN)
+        p0 = paged_from_contiguous(c0, cfg, page=SERVE_PAGE,
+                                   kv_bits=SERVE_BITS)
+        del c0
+        lg1, c1 = pre(params, dserve.place(tokens, pre_sh["tokens"]))
+        p1 = dserve.paged_from_rows(c1, cfg, mesh, B, page=SERVE_PAGE,
+                                    kv_bits=SERVE_BITS)
+        del c1
+        check(torch.equal(lg0, lg1), "serve_at_scale/ranks: make_prefill's "
+              "logits differ from prefill's")
+        check(p1["layers"][0].spec.block == 512, "serve_at_scale/ranks: "
+              f"block {p1['layers'][0].spec.block}")
+
+        def same_pools():
+            return all(torch.equal(getattr(a, n)[:-1], getattr(b, n)[:-1])
+                       for a, b in zip(p0["layers"], p1["layers"])
+                       for n in a.pool_fields)
+
+        check(same_pools(), "serve_at_scale/ranks: paged_from_rows's pools "
+              "differ from paged_from_contiguous's")
+        def note(lg):
+            """The one-card logits and, per lane, the top-1 minus top-2
+            margin and the largest |logit|, on the host."""
+            top = torch.topk(lg[:, -1], 2)
+            logits.append(lg[:, -1].cpu())
+            margins.append(torch.stack(
+                [top.values[:, 0] - top.values[:, 1],
+                 lg[:, -1].abs().amax(-1)], -1).cpu().tolist())
+
+        for _ in range(spec["steps"]):
+            spy.mark_step()
+            note(lg0)
+            t0, t1 = lg0[:, -1].argmax(-1)[:, None], \
+                lg1[:, -1].argmax(-1)[:, None]
+            equal_tokens += torch.equal(t0, t1)
+            lg0, p0 = one(tfm.decode_step, params, cfg, t0, p0)
+            lg1, p1 = ranked(dec, params, t1, p1)
+            equal_logits += torch.equal(lg0, lg1)
+            equal_pools += same_pools()
+        note(lg0)
+        gathered = spy.steps[1:]
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del p0, p1, params
+    torch.cuda.empty_cache()
+    steps = spec["steps"]
+    out = {"phase": "serve_at_scale/ranks", "nvidia_smi": smi,
+           "arch": cfg.name, "n_layers": cfg.n_layers, "batch": B,
+           "prompt": spec["prompt"], "decode_steps": steps,
+           "page": SERVE_PAGE, "kv_bits": SERVE_BITS,
+           "max_len": SERVE_MAX_LEN,
+           "decode_ms_median_no_group": one.ms(),
+           "decode_ms_median_rank": ranked.ms(),
+           "gathered_calls_and_bytes_per_step": gathered[0],
+           "steps_equal": {"logits": equal_logits, "tokens": equal_tokens,
+                           "pools": equal_pools},
+           "launches_per_step_rank": ranked.launches()[0],
+           "launches_per_step_no_group": one.launches()[0],
+           "peak_gb": peak}
+    check(equal_logits == equal_tokens == equal_pools == steps,
+          f"serve_at_scale/ranks: the rank path parts from the no-group "
+          f"path: {out['steps_equal']}")
+    check(all(g == gathered[0] for g in gathered)
+          and gathered[0][0] == cfg.n_layers,
+          f"serve_at_scale/ranks: all-gathers per step {gathered}")
+    for what, t in (("rank", ranked), ("no_group", one)):
+        for d in t.launches():
+            expect_launches(d, per_step, f"serve_at_scale/ranks {what}, a "
+                            "decode step")
+    cards = torch.cuda.device_count()
+    n_cards = min(cards, RANKS_MAX_CARDS)
+    n_cards = n_cards if n_cards in (2, 4) else (2 if cards >= 2 else 1)
+    if n_cards >= 2:
+        out["cross_card"] = _serve_cross_cards(
+            n_cards, {"logits": logits, "margins": margins,
+                      "per_step": per_step})
+    else:
+        out["cross_card"] = ("not made: this machine has one card "
+                             "(NCCL takes one rank per card)")
+        print("serve_at_scale/ranks: the cross-card run was not made (one "
+              "card)", file=sys.stderr)
+    emit(out)
+    # the rank path's decode steps (the counts read around each call)
+    return {k: sum(d[k] for d in ranked.launches())
+            for k in cuda_lib.launch_counts()}
+
+
 def main():
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -3412,10 +3874,12 @@ def main():
         train[what], rank_path = phase_train_at_scale(dev, smi, flops, what)
         if rank_path is not None:
             ranks[f"{what}/ranks"] = rank_path
-    ranks["ckpt_at_scale"] = phase_ckpt_at_scale(dev, smi)
+    ranks["ckpt_at_scale"], ranks["ckpt_at_scale/ranks"] = \
+        phase_ckpt_at_scale(dev, smi)
     serve = {"serve_small": phase_serve_small(dev)}
     serve.update({what: phase_serve_at_scale(dev, smi, what)
                   for what in SERVE_AT_SCALE})
+    serve["serve_at_scale/ranks"] = phase_serve_ranks(dev, smi)
     # launches: each kernel's count on its path at the real size (LEAD's for
     # K1-K3, CHOCO's wire for K4-K6), each path run with the counts at 0
     at_scale = {"quantize_encode": baselines["pinf_2bit"],
@@ -3442,6 +3906,8 @@ def main():
             **{what: v.get(k, 0) for what, v in serve.items()}}
         if k in hot_path:
             r["hot_path_512"] = hot_path[k]
+    emit({"phase": "script", "seconds": time.perf_counter() - start,
+          "nvidia_smi": smi})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -3454,4 +3920,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-worker"]:
         sys.exit(rank_worker(int(sys.argv[2]), int(sys.argv[3]),
                              sys.argv[4], sys.argv[5]))
+    if sys.argv[1:2] == ["--serve-rank-worker"]:
+        sys.exit(serve_rank_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                   sys.argv[4]))
     sys.exit(main())

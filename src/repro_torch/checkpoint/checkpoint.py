@@ -15,8 +15,11 @@ Writes go to a temporary file in the same directory, renamed into place.
 ``save(ckpt_dir, step, tree)`` writes ``step_XXXXXXXX.npz`` and a ``LATEST``
 file naming the step; ``restore(ckpt_dir, like)`` reads the latest (or a
 given) step.  Across ranks (a ``dist/sharding.AgentLayout``), global rank 0
-gathers every agent's rows and writes the file, and on restore every rank
-reads it and keeps its own agents' rows.
+gathers every agent's rows into host arrays, leaf by leaf and peer by peer,
+and writes the file; on restore every rank reads each leaf on the host and
+copies only its own agents' rows to its device.  So no rank's device ever
+holds more than its own state and one peer's rows of one leaf, as the
+reference copies to the host (``jax.device_get``) and places each shard.
 """
 from __future__ import annotations
 
@@ -57,19 +60,33 @@ def _paths(tree):
     return keys, leaves, treedef
 
 
-def _to_numpy(leaf) -> np.ndarray:
-    if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
-        if t.dtype == torch.bfloat16:        # numpy has no bfloat16
-            t = t.to(torch.float32)
-        return t.numpy()
-    return np.asarray(leaf)
+def host_array(leaf) -> np.ndarray:
+    """`leaf` (a tensor on any device, or an array) as a host numpy array,
+    a bf16 tensor as f32 (numpy has no bfloat16).  A strided tensor on a
+    device (the trainer's leaves are views of padded blocks) is copied one
+    leading row at a time: copying it whole would first make a contiguous
+    copy of all of it on the device."""
+    if not isinstance(leaf, torch.Tensor):
+        return np.asarray(leaf)
+    t = leaf.detach()
+    if t.device.type != "cpu" and t.numel() and not t.is_contiguous():
+        out = None
+        for i, r in enumerate(t):
+            a = host_array(r)
+            if out is None:
+                out = np.empty(tuple(t.shape), a.dtype)
+            out[i] = a
+        return out
+    t = t.cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
 
 
 def save_pytree(path: str, tree: Any) -> None:
     """Write `tree` (tensors or arrays) to `path`, atomically."""
     keys, leaves, _ = _paths(tree)
-    arrays = {f"leaf_{i}": _to_numpy(l) for i, l in enumerate(leaves)}
+    arrays = {f"leaf_{i}": host_array(l) for i, l in enumerate(leaves)}
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
@@ -83,9 +100,11 @@ def save_pytree(path: str, tree: Any) -> None:
             os.unlink(tmp)
 
 
-def load_pytree(path: str, like: Any, device=None) -> Any:
+def load_pytree(path: str, like: Any, device=None, rows=None) -> Any:
     """Restore `path` into the structure of `like` (tensors: each leaf
-    takes its dtype and, unless `device` is given, its device).
+    takes its dtype and, unless `device` is given, its device).  `rows` (a
+    slice) keeps those rows of every leaf of one or more dimensions, cut on
+    the host before the copy to the device; `like` has the file's shapes.
 
     Leaves are matched by their saved path keys; a checkpoint written
     without them falls back to positional order.  A truncated or corrupt
@@ -129,10 +148,12 @@ def load_pytree(path: str, like: Any, device=None) -> Any:
                 f"checkpoint {path}: leaf {key!r} has shape {a.shape} but "
                 f"the target expects {tuple(ref.shape)}; refusing a "
                 "reshaping restore")
+        if rows is not None and a.ndim:
+            a = a[rows]
         if isinstance(ref, torch.Tensor):
             dev = ref.device if device is None else device
             a = a if a.flags.c_contiguous else a.copy()   # 0-d stays 0-d
-            out.append(torch.from_numpy(a).to(device=dev, dtype=ref.dtype))
+            out.append(torch.from_numpy(a).to(ref.dtype).to(dev))
         else:
             out.append(a.astype(np.asarray(ref).dtype))
     return tree_unflatten(treedef, out)
@@ -147,8 +168,8 @@ def _path_of(ckpt_dir: str, step: int) -> str:
 def save(ckpt_dir: str, step: int, tree: Any, layout=None) -> str:
     """Write `tree` as step `step` of `ckpt_dir` and point LATEST at it.
     With a rank `layout` (dist/sharding.AgentLayout) every rank calls this:
-    global rank 0 gathers every agent's rows and writes, and all ranks
-    leave once the file is in place."""
+    global rank 0 gathers every agent's rows to the host and writes, and
+    all ranks leave once the file is in place."""
     path = _path_of(ckpt_dir, step)
     if layout is None or not layout.distributed:
         _write(ckpt_dir, step, path, tree)
@@ -170,8 +191,9 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
             layout=None):
     """(tree, step) of `ckpt_dir`'s LATEST step (or `step`), restored into
     the structure of `like`; (None, -1) when the directory holds none.
-    With a rank `layout`, `like` is the rank's own state: the file's whole
-    tree is read and the rank keeps its agents' rows."""
+    With a rank `layout`, `like` is the rank's own state: each leaf of the
+    file is read on the host and only the rank's agents' rows reach its
+    device."""
     latest = os.path.join(ckpt_dir, "LATEST")
     if step is None:
         if not os.path.exists(latest):
@@ -181,11 +203,11 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
     path = _path_of(ckpt_dir, step)
     if layout is None or not layout.distributed:
         return load_pytree(path, like), step
-    # the whole tree's shapes (each stacked leaf with every agent's rows)
-    # on the rank's device
+    # checked against the whole tree's shapes (each stacked leaf with every
+    # agent's rows), the rank's rows cut on the host
     device = next((l.device for l in tree_flatten(like)[0]), None)
-    whole = load_pytree(path, _widened(like, layout.n_agents), device)
-    return layout.rows(whole), step
+    return load_pytree(path, _widened(like, layout.n_agents), device,
+                       rows=slice(layout.first, layout.stop)), step
 
 
 def _widened(tree, n_agents: int):

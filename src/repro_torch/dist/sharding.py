@@ -25,9 +25,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint.checkpoint import host_array
 from repro_torch.launch.mesh import agent_group
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -135,26 +137,41 @@ class AgentLayout:
 
     def gather(self, tree):
         """Every agent's rows of every stacked leaf, gathered to global
-        rank 0 (the first block of replica index 0): the whole tree there,
-        None on every other rank; replicas of other model indices take no
-        part.  Without a mesh, `tree` itself."""
+        rank 0 (the first block of replica index 0) on the host: the whole
+        tree there as numpy arrays (a bf16 leaf as f32, as checkpoints
+        store it; 0-d leaves as they are), None on every other rank;
+        replicas of other model indices take no part.  Without a mesh,
+        `tree` itself.
+
+        One leaf and one peer at a time: rank 0 copies each block of rows
+        into the leaf's host array as it arrives, so at most one peer's
+        rows of one leaf are on its device beyond the rank's own state."""
         if not self.distributed:
             return tree
         leaves, treedef = tree_flatten(tree)
         root = self.peers[0]
         if root != 0:                    # another replica index: not written
             return None
+        if self.mesh.rank != root:
+            for l in leaves:
+                if l.ndim:
+                    dist.send(l.contiguous(), dst=root, group=self.group)
+            return None
         out = []
         for l in leaves:
             if l.ndim == 0:
                 out.append(l)
                 continue
-            src = l.contiguous()
-            parts = ([torch.empty_like(src) for _ in self.peers]
-                     if self.mesh.rank == root else None)
-            dist.gather(src, parts, dst=root, group=self.group)
-            out.append(torch.cat(parts) if parts is not None else None)
-        return tree_unflatten(treedef, out) if self.mesh.rank == root else None
+            own = host_array(l)
+            whole = np.empty((self.n_agents,) + own.shape[1:], own.dtype)
+            whole[:self.local] = own
+            buf = (torch.empty_like(l, memory_format=torch.contiguous_format)
+                   if len(self.peers) > 1 else None)
+            for b, peer in enumerate(self.peers[1:], start=1):
+                dist.recv(buf, src=peer, group=self.group)
+                whole[b * self.local:(b + 1) * self.local] = host_array(buf)
+            out.append(whole)
+        return tree_unflatten(treedef, out)
 
 
 def agent_layout(mesh, prof: ShardingProfile, n_agents: int) -> AgentLayout:
@@ -181,3 +198,36 @@ def train_batch_rows(layout: AgentLayout, batch):
     if not layout.distributed:
         return batch
     return {k: v[layout.first:layout.stop] for k, v in batch.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchRows:
+    """A rank's placement of a ``(B, ...)`` serving tensor: rows [start,
+    stop) of dim 0 (the batch split over "data"), or, with start and stop
+    None, the whole tensor (replicated).  The port's counterpart of the
+    reference's ``P("data", None, ...)`` and ``P(None, ...)``."""
+    start: Optional[int] = None
+    stop: Optional[int] = None
+
+    @property
+    def split(self) -> bool:
+        return self.start is not None
+
+    def take(self, t):
+        """The rank's part of the whole tensor `t`: its rows copied (they
+        keep no whole tensor alive), or `t` itself when replicated."""
+        return t[self.start:self.stop].clone() if self.split else t
+
+
+def serve_batch_spec(mesh, ndim: int, batch: int) -> BatchRows:
+    """This rank's placement of a (B, ...) serving tensor on `mesh` (a
+    launch/mesh.RankMesh): its rows over "data" when "data" divides B and
+    ndim >= 1, else replicated.  Ranks that differ only along "pod" or
+    "model" hold the same rows, replicas as under ``P("data", ...)`` on a
+    (pod, data, model) mesh."""
+    data = mesh.dims.get("data")
+    if ndim >= 1 and data and batch % data == 0:
+        n = batch // data
+        i = mesh.coords()["data"]
+        return BatchRows(i * n, (i + 1) * n)
+    return BatchRows()

@@ -21,6 +21,7 @@ import dataclasses
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
+import torch
 import torch.distributed as dist
 
 AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
@@ -131,6 +132,18 @@ def node_group(mesh: RankMesh, agent_axes: Sequence[str],
     k = int(blocks_per_node)
     return mesh.subgroup([g[i:i + k] for g in mesh.partition(agent_axes)
                           for i in range(0, len(g), k)])
+
+
+def all_gather_bytes(t, group):
+    """(world, nbytes) uint8: `t` of every rank of `group` in rank order,
+    moved as raw bytes (any dtype, one collective of fixed size, no host
+    sync); ``out[r].view(t.dtype).reshape(t.shape)`` is rank r's `t`."""
+    buf = t.contiguous().reshape(-1).view(torch.uint8)
+    out = buf.new_empty(dist.get_world_size(group) * buf.numel())
+    gather = (getattr(dist, "all_gather_single", None)
+              or dist.all_gather_into_tensor)
+    gather(out, buf, group=group)
+    return out.reshape(-1, buf.numel())
 
 
 def _row_major(sizes):

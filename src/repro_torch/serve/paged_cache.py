@@ -27,6 +27,12 @@ Every update is a scatter or gather with device-side indices and every
 write lands in place, so a serving step changes data and never a shape,
 and makes no host sync.  Layers of one kind share one page-table tensor:
 an edit to it reaches every such layer.
+
+Across ranks (dist/serve.py) each rank holds its lanes' page tables and
+tails and a whole copy of the pool.  A cache with a ``group`` keeps the
+copies equal: each decode step's written page rows (the encoded codes and
+scales, or fp pages) and their page ids are all-gathered over the group,
+one collective per layer, and every rank writes all of them.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import all_gather_bytes
 from repro_torch.serve.kv_quant import (KVQuantSpec, decode_rows, encode_rows,
                                         pick_block)
 
@@ -46,15 +53,25 @@ class PagedKVCache:
 
     Tensors (exact):  kp, vp, page_table, tail_k, tail_v
     Tensors (quant):  kc, ksc, vc, vsc, page_table, tail_k, tail_v
-    Each pool tensor has n_pages + 1 rows (the last is the spare row)."""
+    Each pool tensor has n_pages + 1 rows (the last is the spare row).
+    ``group`` (a torch.distributed group, None in one process): the ranks
+    whose lanes write into this pool's copies (see the module docstring)."""
 
     def __init__(self, *, page: int, rolling: bool,
                  spec: Optional[KVQuantSpec], page_table, tail_k, tail_v,
-                 kp=None, vp=None, kc=None, ksc=None, vc=None, vsc=None):
+                 kp=None, vp=None, kc=None, ksc=None, vc=None, vsc=None,
+                 group=None):
         self.page, self.rolling, self.spec = page, rolling, spec
         self.page_table, self.tail_k, self.tail_v = page_table, tail_k, tail_v
         self.kp, self.vp = kp, vp
         self.kc, self.ksc, self.vc, self.vsc = kc, ksc, vc, vsc
+        self.group = group
+
+    @property
+    def pool_fields(self) -> Tuple[str, ...]:
+        """The pool tensors' names (exact: kp, vp; quantized: kc, ksc, vc,
+        vsc)."""
+        return tuple(n for n in _POOL_FIELDS if getattr(self, n) is not None)
 
     def tensors(self) -> Dict[str, torch.Tensor]:
         """Every tensor of the layer by field name, the page table first."""
@@ -106,22 +123,26 @@ class PagedKVCache:
                         self.page_shape, self.dtype)
         return k, v
 
-    def _scatter_page(self, pid, k_pages, v_pages) -> None:
+    def _scatter_page(self, pid, k_pages, v_pages, group=None) -> None:
         """Write fp pages (pid.numel(), *page_shape) at the ids ``pid`` (the
         spare row n_pages takes the writes that must not land).  Quantized
         pools encode through the wire codec (K4) here, the one lossy step
-        in a page's life."""
+        in a page's life.  With a ``group``, every rank's ids and encoded
+        rows are all-gathered first and all of them written."""
         pid = pid.reshape(-1)
         if self.spec is None:
-            self.kp.index_copy_(0, pid, k_pages.to(self.kp.dtype))
-            self.vp.index_copy_(0, pid, v_pages.to(self.vp.dtype))
-            return
-        kc, ksc = encode_rows(k_pages.reshape(-1, *self.page_shape), self.spec)
-        vc, vsc = encode_rows(v_pages.reshape(-1, *self.page_shape), self.spec)
-        self.kc.index_copy_(0, pid, kc)
-        self.ksc.index_copy_(0, pid, ksc)
-        self.vc.index_copy_(0, pid, vc)
-        self.vsc.index_copy_(0, pid, vsc)
+            rows = (k_pages.to(self.kp.dtype), v_pages.to(self.vp.dtype))
+        else:
+            kc, ksc = encode_rows(k_pages.reshape(-1, *self.page_shape),
+                                  self.spec)
+            vc, vsc = encode_rows(v_pages.reshape(-1, *self.page_shape),
+                                  self.spec)
+            rows = (kc, ksc, vc, vsc)
+        writes = ([(pid, rows)] if group is None
+                  else _all_gathered(pid, rows, group))
+        for ids, parts in writes:
+            for name, r in zip(self.pool_fields, parts):
+                getattr(self, name).index_copy_(0, ids, r)
 
     # -- decode-step paths ---------------------------------------------------
     def view(self, pos):
@@ -166,7 +187,7 @@ class PagedKVCache:
         pid = self.page_table[lane, self._cur_page(pos)]
         write = (off == page - 1) & (pid >= 0)
         self._scatter_page(torch.where(write, pid, self.n_pages),
-                           self.tail_k, self.tail_v)
+                           self.tail_k, self.tail_v, self.group)
         return self
 
     # -- chunked-prefill paths ----------------------------------------------
@@ -243,6 +264,25 @@ class PagedKVCache:
             "bits_per_elem": float(bits_per_elem),
             "fp_bits": float(2 * B * npp * elems * dtype_bits),
         }
+
+
+def _all_gathered(pid, rows, group):
+    """[(ids, rows)] of every rank of `group`, in rank order: this rank's
+    page ids (int64) and pool rows packed into one byte buffer and moved by
+    one all-gather, each rank's part read back as views."""
+    parts = (pid,) + tuple(rows)
+    out = all_gather_bytes(torch.cat([p.contiguous().reshape(-1)
+                                      .view(torch.uint8) for p in parts]),
+                           group)
+    writes = []
+    for row in out:
+        views, at = [], 0
+        for p in parts:
+            n = p.numel() * p.element_size()
+            views.append(row[at:at + n].view(p.dtype).reshape(p.shape))
+            at += n
+        writes.append((views[0], views[1:]))
+    return writes
 
 
 # ---------------------------------------------------------------------------

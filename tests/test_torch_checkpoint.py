@@ -1,7 +1,11 @@
 """The port's checkpoints (src/repro_torch/checkpoint) on the CPU: the
 reference's file format in both directions, the loud failures, a faulted
 run across 2 ranks resumed bit for bit, and launch/train.py's
-``--ckpt-dir`` under torchrun and in one process.
+``--ckpt-dir`` under torchrun and in one process.  Across the 2 ranks, no
+save or restore creates a tensor with more than the rank's rows of a leaf
+(rank 0 stages the whole tree in host arrays only), a file written through
+the layout equals the one-process file of the same tree, and bf16 leaves
+(stored as f32) come back bit for bit.
 
 Setting: granite-3-2b ``.reduced()``, 4 agents, batch 2 x seq 32 (as
 tests/test_torch_trainer.py).  The rank processes (this file run as a
@@ -34,6 +38,61 @@ def _env():
         [os.path.join(HERE, "..", "src"), HERE, env.get("PYTHONPATH", "")])
     env["OMP_NUM_THREADS"] = "1"
     return env
+
+
+# -- what save and restore stage -------------------------------------------
+
+class RowSpy:
+    """The largest leading dimension of any tensor made inside the with
+    block: every op's outputs (a TorchDispatchMode) and torch.from_numpy's.
+    Meta tensors (shapes only, no data) are not counted."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        spy, self.most = self, 0
+
+        def seen(t):
+            if isinstance(t, torch.Tensor) and t.ndim and not t.is_meta:
+                spy.most = max(spy.most, int(t.shape[0]))
+            elif isinstance(t, (tuple, list)):
+                for x in t:
+                    seen(x)
+            return t
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                return seen(func(*args, **(kwargs or {})))
+
+        self._from_numpy = torch.from_numpy
+        torch.from_numpy = lambda a: seen(self._from_numpy(a))
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        torch.from_numpy = self._from_numpy
+
+
+def _bf16_state(seed=3):
+    """A whole train state with every algo leaf in bf16, one leaf holding
+    +-0, +-inf, the smallest subnormal and the largest finite bf16."""
+    from repro_torch.utils.tree import tree_map
+
+    state = _randomized(_port_state(0), seed)
+    algo = tree_map(lambda l: l.to(torch.bfloat16), state.algo)
+    first = algo["h"]["embed"].reshape(-1)
+    first[:6] = torch.tensor([0.0, -0.0, float("inf"), float("-inf"),
+                              2.0 ** -133, 3.3895e38]).to(torch.bfloat16)
+    return state._replace(algo=algo)
+
+
+def _bits(tree):
+    """Every leaf's bytes, bf16 leaves reinterpreted as int16."""
+    from repro_torch.utils.tree import tree_leaves
+    return [(l.view(torch.int16) if l.dtype == torch.bfloat16 else l)
+            .contiguous().numpy().tobytes() for l in tree_leaves(tree)]
 
 
 # -- the rank side: a faulted run, uninterrupted and resumed ------------------------
@@ -92,23 +151,39 @@ def resume_main(out_dir, rank):
                                     torch.Generator().manual_seed(seed),
                                     "cpu", mesh=mesh)
 
+        staged = []
+
+        def save(name, at, state):
+            with RowSpy() as spy:
+                ckpt.save(os.path.join(out_dir, name), at, state, layout=lay)
+            staged.append(spy.most)
+
+        def restore(name, like):
+            with RowSpy() as spy:
+                out = ckpt.restore(os.path.join(out_dir, name), like,
+                                   layout=lay)
+            staged.append(spy.most)
+            return out
+
         straight, dropped = run(fresh(0), 0, RESUME_STEPS)
-        ckpt.save(os.path.join(out_dir, "straight"), RESUME_STEPS, straight,
-                  layout=lay)
+        save("straight", RESUME_STEPS, straight)
         killed, _ = run(fresh(0), 0, KILLED_AT)
-        ckpt.save(os.path.join(out_dir, "killed"), KILLED_AT, killed,
-                  layout=lay)
+        save("killed", KILLED_AT, killed)
         del killed
         other = fresh(1)
-        resumed, at = ckpt.restore(os.path.join(out_dir, "killed"), other,
-                                   layout=lay)
+        resumed, at = restore("killed", other)
         restored_fresh = _digest(resumed) != _digest(other)
         resumed, _ = run(resumed, at, RESUME_STEPS)
-        ckpt.save(os.path.join(out_dir, "resumed"), RESUME_STEPS, resumed,
-                  layout=lay)
+        save("resumed", RESUME_STEPS, resumed)
+        # bf16 leaves through the layout: the rank's rows of one whole state
+        mine = lay.rows(_bf16_state())
+        save("bf16", 7, mine)
+        back, _ = restore("bf16", _randomized(mine, 5))
         res = {"at": at, "dropped": dropped,
                "restored_fresh": restored_fresh,
                "same": _digest(straight) == _digest(resumed),
+               "bf16_same": _bits(back) == _bits(mine),
+               "staged_rows": staged,
                "first": lay.first, "local": lay.local}
     finally:
         dist.destroy_process_group()
@@ -309,6 +384,50 @@ def test_bad_files_raise(tmp_path):
         state.params))
     with pytest.raises(ValueError, match="shape"):
         ckpt.load_pytree(path, wider)
+
+
+@pytest.mark.parametrize("ranks", [1, 2])
+def test_bf16_round_trip_is_bit_exact(tmp_path, background, ranks):
+    """A state with bf16 leaves (stored as f32; +-0, +-inf, a subnormal and
+    the largest bf16 among them) restores bit for bit: in one process, and
+    through the 2-rank layout (each rank its rows); the layout's file
+    equals the one-process file of the same state, leaf for leaf, dtype
+    for dtype and in its path keys."""
+    from repro_torch import checkpoint as ckpt
+
+    state = _bf16_state()
+    path = ckpt.save(str(tmp_path), 7, state)
+    if ranks == 1:
+        like = _randomized(state, 5)
+        back, at = ckpt.restore(str(tmp_path), like)
+        assert at == 7 and _bits(back) == _bits(state)
+        with np.load(path) as z:
+            assert {z[k].dtype for k in z.files if k != "__meta__"} == {
+                np.dtype(np.float32), np.dtype(np.int64)}
+        return
+    out, _ = background("resume")
+    res = [json.load(open(out / f"resume.{r}.json")) for r in range(2)]
+    assert all(r["bf16_same"] for r in res), res
+    with np.load(path) as one, np.load(out / "bf16" / "step_00000007.npz") \
+            as two:
+        assert sorted(one.files) == sorted(two.files)
+        assert json.loads(one["__meta__"].item()) == \
+            json.loads(two["__meta__"].item())
+        for k in one.files:
+            assert one[k].dtype == two[k].dtype, k
+            assert np.array_equal(one[k], two[k]), k
+
+
+def test_rank_checkpoint_stages_only_the_ranks_rows(background):
+    """Across 2 ranks (2 agents each), no save and no restore creates a
+    tensor with more than the rank's 2 rows of a leaf, on either rank: rank
+    0 gathers each peer's rows into host arrays one leaf at a time, and a
+    restore cuts the rank's rows on the host before they become tensors."""
+    out, _ = background("resume")
+    res = [json.load(open(out / f"resume.{r}.json")) for r in range(2)]
+    for r in res:
+        assert len(r["staged_rows"]) == 6
+        assert max(r["staged_rows"]) == r["local"] == 2, r["staged_rows"]
 
 
 def test_cli_checkpoint_resumes(background, capsys):
