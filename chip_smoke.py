@@ -3,7 +3,7 @@
 
     PYTHONPATH=src python3 chip_smoke.py
 
-Builds the kernels from src/repro_torch/csrc, then runs twenty-seven
+Builds the kernels from src/repro_torch/csrc, then runs twenty-eight
 phases, each printing one JSON line (the at-scale phases one per run); a
 failed check exits nonzero.
 
@@ -217,6 +217,25 @@ failed check exits nonzero.
                  also one rank per card (chip_smoke.py
                  --serve-rank-worker): every rank's pools identical, each
                  lane's greedy stream the one-card run's up to a near-tie
+  moe_ep_at_scale
+                 granite-moe-1b-a400m whole (24 layers, 32 experts top-8)
+                 with moe_ep_axis "data": 16 lanes of a 256-token prompt
+                 through make_prefill (the expert-parallel all-to-all
+                 dispatch, models/moe_ep.py) in a one-rank NCCL group
+                 against the no-group prefill, logits and cache bit for
+                 bit, the all_to_all_single bytes as counted, ms per
+                 prefill; the pairs each of the ep path and the plain MoE
+                 drops at capacity factor 1.25; at 8.0 (nothing drops) the
+                 ep path's logits within 1e-4 of the plain MoE's; at 0.5
+                 (both capacities drop) the group path bit for bit against
+                 the no-group path on 4 lanes, the drops a count of each
+                 bin's overflow; then
+                 paged_from_rows and 4 steps of make_paged_decode's fn
+                 (the plain MoE routing the whole batch) bit for bit
+                 against the no-group path, K4 = K2 = 48 per step; with 2
+                 or 4 cards also one rank per card (chip_smoke.py
+                 --moe-ep-rank-worker: each rank its lanes and its block
+                 of experts)
 
 The script's seconds and the card's name and power limit are printed
 before the kernels line.  The line before the last lists every kernel
@@ -418,7 +437,19 @@ def choco_compressor(wire):
 H100_SXM = ("H100 80GB HBM3", 3.35e12, 67e12)
 
 
+PHASE_SECONDS = {}
+_LAST_EMIT = [time.perf_counter()]
+
+
 def emit(obj):
+    """Print obj as one JSON line; the host seconds since the previous
+    line go to its phase's entry of PHASE_SECONDS."""
+    now = time.perf_counter()
+    if "phase" in obj:
+        name = obj["phase"]
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) \
+            + now - _LAST_EMIT[0]
+    _LAST_EMIT[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -3578,13 +3609,10 @@ class _Timed:
         return [d for _, _, d in self.calls]
 
 
-def serve_rank_worker(rank, world, tmp):
-    """One rank of serve_at_scale/ranks across cards: cuda:rank, NCCL, a
-    (world, 1) mesh, the rank's B / world lanes through make_prefill,
-    paged_from_rows and SERVE_RANKS' steps of make_paged_decode's fn,
-    greedy on its own logits; saves its tokens and logits (on the host),
-    its pools' digest, ms per step and the bytes it handed to each step's
-    all-gathers."""
+def card_rank_worker(flag, rank, world, tmp):
+    """One rank across cards (``chip_smoke.py flag rank world tmp``):
+    cuda:rank, NCCL over a FileStore in tmp, a (world, 1) mesh; saves the
+    results of RANK_RUNS[flag](dev, mesh) as tmp/rank{rank}.pt."""
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -3596,15 +3624,53 @@ def serve_rank_worker(rank, world, tmp):
         "nccl", store=dist.FileStore(os.path.join(tmp, "store"), world),
         rank=rank, world_size=world)
     try:
-        res = _serve_rank_run(dev, make_mesh((world, 1)))
+        res = RANK_RUNS[flag](dev, make_mesh((world, 1)))
     finally:
         dist.destroy_process_group()
-    torch.save(res, os.path.join(tmp, f"serve{rank}.pt"))
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
     return 0
 
 
+def _across_cards(flag, n_cards, what):
+    """Run card_rank_worker(flag) on n_cards cards, one process each, and
+    return their results in rank order."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([os.path.join(ROOT, "src"),
+                                         env.get("PYTHONPATH", "")])
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               flag, str(r), str(n_cards), tmp], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for r in range(n_cards)]
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=600)
+            if p.returncode:
+                errs.append(err[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    check(not errs, f"{what} across {n_cards} cards: " + "\n".join(errs))
+    res = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+           for r in range(n_cards)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def _serve_rank_run(dev, mesh):
-    """serve_rank_worker's run on `dev` over `mesh`."""
+    """One rank of serve_at_scale/ranks across cards on `dev` over `mesh`
+    (a (world, 1) mesh): the rank's B / world lanes through make_prefill,
+    paged_from_rows and SERVE_RANKS' steps of make_paged_decode's fn,
+    greedy on its own logits; its tokens and logits (on the host), its
+    pools' digest, ms per step and the bytes it handed to each step's
+    all-gathers."""
     from repro_torch.dist import serve as dserve
 
     cfg, params, tokens = _serve_ranks_inputs(dev)
@@ -3633,35 +3699,9 @@ def _serve_cross_cards(n_cards, one_card):
     run's up to a step where the one-card top-1 minus top-2 margin is
     within SERVE_RANKS_TIE of the largest |logit|; the logits' gap before
     each lane's first differing token."""
-    import shutil
-    import tempfile
-
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_ranks_")
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join([os.path.join(ROOT, "src"),
-                                         env.get("PYTHONPATH", "")])
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--serve-rank-worker", str(r), str(n_cards),
-                               tmp], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for r in range(n_cards)]
-    errs = []
-    try:
-        for p in procs:
-            _, err = p.communicate(timeout=600)
-            if p.returncode:
-                errs.append(err[-3000:])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    check(not errs, f"serve_at_scale/ranks across {n_cards} cards: "
-          + "\n".join(errs))
-    res = [torch.load(os.path.join(tmp, f"serve{r}.pt"))
-           for r in range(n_cards)]
-    shutil.rmtree(tmp, ignore_errors=True)
-    return _hold_cross_cards(res, one_card)
+    return _hold_cross_cards(
+        _across_cards("--serve-rank-worker", n_cards,
+                      "serve_at_scale/ranks"), one_card)
 
 
 def _hold_cross_cards(res, one_card):
@@ -3827,6 +3867,408 @@ def phase_serve_ranks(dev, smi):
             for k in cuda_lib.launch_counts()}
 
 
+MOE_EP = dict(arch="granite-moe-1b-a400m", params=1_384_963_072, batch=16,
+              prompt=256, max_len=512, steps=4, check_batch=4)
+MOE_EP_NO_DROP = 8.0        # the capacity factor at which nothing drops
+MOE_EP_DROPS = 0.5          # one at which both capacities drop pairs
+# the ep path against the plain MoE where nothing drops: the card's f32
+# bound of serving (logits within 1e-4 of the largest |logit|)
+MOE_EP_RTOL = SERVE_RTOL[torch.float32]
+
+
+class SlotSpy:
+    """(token, choice) pairs that the expert-parallel dispatch drops inside
+    its with block (models/moe_ep._slots: at hop 1's C_s and at the
+    experts' C_e; an id outside the bins marks an empty received slot),
+    and the same count made apart from _slots: each bin's ids beyond its
+    capacity."""
+
+    def __enter__(self):
+        from repro_torch.models import moe_ep
+
+        self.dropped, self.per_bin = [], []
+        self._mod, self._orig = moe_ep, moe_ep._slots
+        spy = self
+
+        def slots(ids, n_bins, cap):
+            slot, keep = spy._orig(ids, n_bins, cap)
+            spy.dropped.append(((ids < n_bins) & ~keep).sum())
+            counts = torch.bincount(torch.clamp(ids, 0, n_bins),
+                                    minlength=n_bins + 1)[:n_bins]
+            spy.per_bin.append(torch.clamp(counts - cap, min=0).sum())
+            return slot, keep
+
+        moe_ep._slots = slots
+        return self
+
+    def total(self):
+        return int(sum(int(d) for d in self.dropped))
+
+    def total_per_bin(self):
+        return int(sum(int(d) for d in self.per_bin))
+
+    def __exit__(self, *exc):
+        self._mod._slots = self._orig
+
+
+def combine_ms(dev, T, k, d, reps=10):
+    """CUDA-event medians (ms) of one MoE combine of (T * k, d) f32 rows
+    into (T, d), forward alone and forward + backward, by models/moe.py's
+    fold in choice order and by the index_add it replaced, in turns on
+    the same rows."""
+    from repro_torch.models import moe
+
+    g = torch.Generator(dev).manual_seed(0)
+    w = torch.randn((T * k, d), generator=g, device=dev, requires_grad=True)
+    grad = torch.randn((T, d), generator=g, device=dev)
+    tok = torch.arange(T, device=dev).repeat_interleave(k)
+    ways = {"fold": lambda: moe.combine(w, T, k),
+            "index_add": lambda: torch.zeros(
+                (T, d), device=dev).index_add(0, tok, w)}
+    times = {f"{n}_{m}": [] for n in ways for m in ("fwd", "fwd_bwd")}
+    for rep in range(reps + 2):
+        for name, fn in ways.items():
+            for mode in ("fwd", "fwd_bwd"):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn()
+                if mode == "fwd_bwd":
+                    torch.autograd.grad(out, w, grad)
+                b.record()
+                torch.cuda.synchronize()
+                if rep >= 2:
+                    times[f"{name}_{mode}"].append(a.elapsed_time(b))
+    return {key: statistics.median(v) for key, v in times.items()}
+
+
+def _moe_ep_inputs(dev):
+    """MOE_EP's config, its f32 weights drawn on `dev` from seed 0 and its
+    (B, prompt) counter-hash prompts."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import tree_size
+
+    spec = MOE_EP
+    cfg = get_config(spec["arch"])
+    params = tfm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    check(tree_size(params) == spec["params"],
+          f"moe_ep_at_scale: {tree_size(params)} parameters")
+    jobs = _serve_jobs(cfg, spec["batch"], spec["prompt"], spec["prompt"], 0)
+    tokens = torch.tensor([p for p, _ in jobs], device=dev)
+    return cfg, params, tokens
+
+
+def moe_ep_bytes(cfg, T, nsh, ntp, cf):
+    """The bytes one MoE layer hands all_to_all_single on each rank for T
+    local tokens (models/moe_ep.py: hop 1's f32 tokens, int64 ids and f32
+    flags and hop 2's f32 results in (nsh, C_s) buffers; both Ulysses
+    transposes of the f32 (E_loc, C_e, d / ntp) buffer), and C_s, C_e."""
+    E_loc, d_loc = cfg.n_experts // nsh, cfg.d_model // ntp
+    C_s = max(ntp, int(cf * T * cfg.top_k / nsh) // ntp * ntp)
+    C_e = max(ntp, int(cf * nsh * C_s / E_loc) // ntp * ntp)
+    hop = nsh * C_s * (4 * d_loc + 8 + 4 + 4 * d_loc)
+    return hop + 2 * 4 * E_loc * C_e * d_loc, C_s, C_e
+
+
+def _moe_ep_fns(cfg, mesh, batch):
+    """make_prefill's fn for cfg with moe_ep_axis "data" and
+    make_paged_decode's on `mesh` at `batch` lanes, MOE_EP's cache."""
+    import dataclasses
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.dist import serve as dserve
+    from repro_torch.dist.sharding import make_profile
+
+    cfg = dataclasses.replace(cfg, moe_ep_axis="data")
+    L = MOE_EP["max_len"]
+    prof = make_profile(cfg, mesh.axis_names)
+    pre, _, pre_sh, _ = dserve.make_prefill(
+        cfg, mesh, prof, InputShape("prefill", L, batch, "prefill"))
+    dec, _, _, _ = dserve.make_paged_decode(
+        cfg, mesh, prof, InputShape("decode", L, batch, "decode"),
+        page=SERVE_PAGE, kv_bits=SERVE_BITS)
+    return pre, pre_sh["tokens"], dec
+
+
+def _moe_ep_rank_run(dev, mesh):
+    """The rank's B / n lanes and E / n experts: make_prefill's fn once
+    under the spies, then 3 timed calls; at MOE_EP_NO_DROP its rows of
+    the first check_batch lanes; paged_from_rows and MOE_EP's steps of
+    make_paged_decode's fn (the pool's digest, launches per step)."""
+    import dataclasses
+
+    from repro_torch.dist import serve as dserve
+    from repro_torch.launch.mesh import CollectiveSpy
+
+    spec = MOE_EP
+    B = spec["batch"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, params, tokens = _moe_ep_inputs(dev)
+    pre, rows, dec = _moe_ep_fns(cfg, mesh, B)
+    mine = dserve.place(tokens, rows)
+    timed, steps = _Timed(), _Timed()
+    with torch.no_grad():
+        with SlotSpy() as slots, CollectiveSpy() as spy:
+            lg, cache = pre(params, mine)
+        for _ in range(3):
+            timed(pre, params, mine)
+        nb = spec["check_batch"]
+        pre8, rows8, _ = _moe_ep_fns(
+            dataclasses.replace(cfg, capacity_factor=MOE_EP_NO_DROP), mesh,
+            nb)
+        lg8, _ = pre8(params, dserve.place(tokens[:nb], rows8))
+        paged = dserve.paged_from_rows(cache, cfg, mesh, B, page=SERVE_PAGE,
+                                       kv_bits=SERVE_BITS)
+        del cache
+        for _ in range(spec["steps"]):
+            lg, paged = steps(dec, params, lg[:, -1].argmax(-1)[:, None],
+                              paged)
+    torch.cuda.synchronize()
+    return {"first": rows.start, "first8": rows8.start,
+            "logits8": lg8[:, -1].cpu(), "prefill_ms": timed.ms(),
+            "dropped": slots.total(), "collectives": spy.seen,
+            "digest": _pool_digest(paged), "launches": steps.launches(),
+            "decode_ms": steps.ms(),
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def _moe_ep_cross_cards(n_cards, one_card):
+    """moe_ep_at_scale with one rank per card on n_cards cards (each rank
+    its B / n lanes and E / n experts): every rank's pool identical after
+    the decode steps; at MOE_EP_NO_DROP the lanes' logits within
+    MOE_EP_RTOL of the one-card plain MoE's; K4 = K2 = two per layer per
+    decode step; each rank's all_to_all_single bytes the count of
+    moe_ep_bytes."""
+    return _hold_moe_ep_cards(
+        _across_cards("--moe-ep-rank-worker", n_cards, "moe_ep_at_scale"),
+        one_card)
+
+
+def _hold_moe_ep_cards(res, one_card):
+    """_moe_ep_cross_cards' checks of the ranks' results `res`."""
+    n_cards = len(res)
+    cfg, want8 = one_card["cfg"], one_card["logits8"]
+    gap8 = max(max_abs(r["logits8"], want8[r["first8"]:r["first8"]
+                                           + r["logits8"].shape[0]])
+               for r in res) / float(want8.abs().max())
+    T = MOE_EP["batch"] // n_cards * MOE_EP["prompt"]
+    per_layer, C_s, C_e = moe_ep_bytes(cfg, T, n_cards, 1,
+                                       cfg.capacity_factor)
+    out = {"cards": n_cards, "C_s": C_s, "C_e": C_e,
+           "pools_identical": len({r["digest"] for r in res}) == 1,
+           "no_drop_logit_gap": gap8, "bound": MOE_EP_RTOL,
+           "prefill_ms": [r["prefill_ms"] for r in res],
+           "decode_ms": [r["decode_ms"] for r in res],
+           "dropped_pairs": sum(r["dropped"] for r in res),
+           "collectives_per_prefill": [r["collectives"] for r in res],
+           "a2a_bytes_per_layer_counted": per_layer,
+           "peak_gb": [r["peak_gb"] for r in res]}
+    check(out["pools_identical"], f"moe_ep_at_scale across {n_cards} "
+          "cards: the ranks' pools differ")
+    check(gap8 <= MOE_EP_RTOL, f"moe_ep_at_scale across {n_cards} cards: "
+          f"logits at capacity factor {MOE_EP_NO_DROP} {gap8} from the "
+          "plain MoE's")
+    for r in res:
+        check(r["collectives"]["all_to_all_single"]
+              == [6 * cfg.n_layers, per_layer * cfg.n_layers],
+              f"moe_ep_at_scale across {n_cards} cards: all_to_all_single "
+              f"{r['collectives']['all_to_all_single']}, counted "
+              f"{per_layer} bytes a layer")
+        for d in r["launches"]:
+            expect_launches(d, one_card["per_step"], "moe_ep_at_scale "
+                            f"across {n_cards} cards, a decode step")
+    return out
+
+
+def phase_moe_ep(dev, smi):
+    """moe_ep_at_scale: granite-moe-1b-a400m whole (24 layers, d_model
+    1024, 32 experts top-8, vocab 49,155; f32 weights drawn on the card),
+    B = 16 lanes of one 256-token counter-hash prompt, moe_ep_axis "data".
+    In a one-rank NCCL group, make_prefill's fn (the expert-parallel
+    dispatch, models/moe_ep.py, over one-rank ep and tp groups: every
+    all_to_all_single, all-reduce and all-gather called) against the
+    no-group prefill on the same weights and prompts: logits and every
+    layer's contiguous cache bit for bit, all_to_all_single bytes the
+    count of moe_ep_bytes; ms per prefill (CUDA events, median of 3 after
+    one call under the spies).  The (token, choice) pairs dropped at
+    capacity factor 1.25 by the ep path and by the plain MoE (none with
+    these prompts: each expert's load stays under both capacities); at
+    MOE_EP_NO_DROP, where nothing drops, the ep path's logits within
+    MOE_EP_RTOL of the plain MoE's on the first check_batch lanes; at
+    MOE_EP_DROPS, where both capacities drop pairs, the group path's
+    logits and cache bit for bit the no-group path's on those lanes, and
+    the pairs dropped those of a count of each bin's overflow.  Then
+    paged_from_rows (4-bit pages, K4) and MOE_EP's steps of
+    make_paged_decode's fn (its plain MoE routing the whole batch over
+    the data group) in lockstep with paged_from_contiguous and
+    decode_step: logits and pools bit for bit, K4 = K2 = two per layer per
+    step.  The MoE combine's times by the fold and by index_add
+    (combine_ms) at the prefill's tokens and at a trainer agent's.  With 2
+    or 4 cards, also one rank per card (_moe_ep_cross_cards).
+    Returns the group path's launches (paged_from_rows and the decode
+    steps)."""
+    import dataclasses
+
+    from repro_torch.dist import serve as dserve
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import CollectiveSpy
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.paged_cache import paged_from_contiguous
+
+    spec = MOE_EP
+    B, L, nb = spec["batch"], spec["max_len"], spec["check_batch"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, params, tokens = _moe_ep_inputs(dev)
+    ep_cfg = dataclasses.replace(cfg, moe_ep_axis="data")
+    per_step = {k: 2 * cfg.n_layers for k in SERVE_KERNELS}
+    one, ranked, conv = _Timed(), _Timed(), _Timed()
+    dec_one, dec_ranked = _Timed(), _Timed()
+    equal = {"logits": 0, "pools": 0}
+    with OneRankGroup(dev) as mesh, torch.no_grad():
+        pre, rows, dec = _moe_ep_fns(cfg, mesh, B)
+        mine = dserve.place(tokens, rows)
+        with SlotSpy() as ep_slots:
+            lg0, c0 = tfm.prefill(params, ep_cfg, tokens, cache_len=L)
+        with CollectiveSpy() as spy:
+            lg1, c1 = pre(params, mine)
+        check(torch.equal(lg0, lg1), "moe_ep_at_scale: make_prefill's "
+              "logits differ from the no-group prefill's")
+        check(all(torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
+                  for a, b in zip(c0["layers"], c1["layers"])),
+              "moe_ep_at_scale: make_prefill's cache differs from the "
+              "no-group prefill's")
+        for _ in range(3):
+            one(lambda: tfm.prefill(params, ep_cfg, tokens, cache_len=L))
+            ranked(pre, params, mine)
+        with RouteSpy() as plain_route:
+            lg_plain, _ = tfm.prefill(params, cfg, tokens, cache_len=L)
+        plain_gap = max_abs(lg_plain, lg0) / float(lg_plain.abs().max())
+        cfg8 = dataclasses.replace(cfg, capacity_factor=MOE_EP_NO_DROP)
+        lg8, _ = tfm.prefill(params, cfg8, tokens[:nb], cache_len=L)
+        with SlotSpy() as slots8:
+            lg8_ep, _ = tfm.prefill(
+                params, dataclasses.replace(cfg8, moe_ep_axis="data"),
+                tokens[:nb], cache_len=L)
+        gap8 = max_abs(lg8_ep, lg8) / float(lg8.abs().max())
+        cfg_d = dataclasses.replace(cfg, capacity_factor=MOE_EP_DROPS)
+        pre_d, rows_d, _ = _moe_ep_fns(cfg_d, mesh, nb)
+        with SlotSpy() as drops:
+            lgd0, cd0 = tfm.prefill(
+                params, dataclasses.replace(cfg_d, moe_ep_axis="data"),
+                tokens[:nb], cache_len=L)
+        lgd1, cd1 = pre_d(params, dserve.place(tokens[:nb], rows_d))
+        drops_equal = torch.equal(lgd0, lgd1) and all(
+            torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
+            for a, b in zip(cd0["layers"], cd1["layers"]))
+        del cd0, cd1
+        p0 = conv(lambda: paged_from_contiguous(
+            c0, ep_cfg, page=SERVE_PAGE, kv_bits=SERVE_BITS))
+        p1 = conv(lambda: dserve.paged_from_rows(
+            c1, ep_cfg, mesh, B, page=SERVE_PAGE, kv_bits=SERVE_BITS))
+        del c0, c1
+        for _ in range(spec["steps"]):
+            t0 = lg0[:, -1].argmax(-1)[:, None]
+            t1 = lg1[:, -1].argmax(-1)[:, None]
+            lg0, p0 = dec_one(tfm.decode_step, params, ep_cfg, t0, p0)
+            lg1, p1 = dec_ranked(dec, params, t1, p1)
+            equal["logits"] += torch.equal(lg0, lg1)
+            equal["pools"] += all(
+                torch.equal(getattr(a, n)[:-1], getattr(b, n)[:-1])
+                for a, b in zip(p0["layers"], p1["layers"])
+                for n in a.pool_fields)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del p0, p1, params
+    torch.cuda.empty_cache()
+    T = B * spec["prompt"]
+    per_layer, C_s, C_e = moe_ep_bytes(cfg, T, 1, 1, cfg.capacity_factor)
+    dropped_plain = sum(int((~keep).sum()) for _, keep, _ in
+                        plain_route.calls)
+    out = {"phase": "moe_ep_at_scale", "nvidia_smi": smi,
+           "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "experts": cfg.n_experts,
+           "top_k": cfg.top_k, "batch": B, "prompt": spec["prompt"],
+           "max_len": L, "capacity_factor": cfg.capacity_factor,
+           "C_s": C_s, "C_e": C_e,
+           "prefill_ms_no_group": one.ms(), "prefill_ms_rank": ranked.ms(),
+           "prefill_ms_runs": {"no_group": [a.elapsed_time(b) for a, b, _
+                                            in one.calls],
+                               "rank": [a.elapsed_time(b) for a, b, _
+                                        in ranked.calls]},
+           "collectives_per_prefill": spy.seen,
+           "a2a_bytes_per_layer_counted": per_layer,
+           "pairs_routed": T * cfg.top_k * cfg.n_layers,
+           "pairs_dropped": {"ep": ep_slots.total(),
+                             "plain": dropped_plain},
+           "plain_vs_ep_logit_gap": plain_gap,
+           "no_drop": {"capacity_factor": MOE_EP_NO_DROP, "batch": nb,
+                       "dropped_ep": slots8.total(), "logit_gap": gap8,
+                       "bound": MOE_EP_RTOL},
+           "drops": {"capacity_factor": MOE_EP_DROPS, "batch": nb,
+                     "pairs_routed": nb * spec["prompt"] * cfg.top_k
+                     * cfg.n_layers, "dropped_ep": drops.total(),
+                     "dropped_counted_per_bin": drops.total_per_bin(),
+                     "group_path_equal": drops_equal},
+           "decode_steps": spec["steps"],
+           "decode_ms_median_no_group": dec_one.ms(),
+           "decode_ms_median_rank": dec_ranked.ms(),
+           "steps_equal": equal,
+           "launches_paged_from": {"no_group": conv.launches()[0],
+                                   "rank": conv.launches()[1]},
+           "launches_per_step_rank": dec_ranked.launches()[0],
+           "launches_per_step_no_group": dec_one.launches()[0],
+           "peak_gb": peak,
+           "combine_ms": {
+               f"T{t}_k{cfg.top_k}_d{cfg.d_model}": combine_ms(
+                   dev, t, cfg.top_k, cfg.d_model)
+               for t in (T, TRAIN_BATCH * TRAIN_SEQ)}}
+    check(equal["logits"] == equal["pools"] == spec["steps"],
+          f"moe_ep_at_scale: the rank path's decode parts from the no-group "
+          f"path: {equal}")
+    check(spy.seen.get("all_to_all_single")
+          == [6 * cfg.n_layers, per_layer * cfg.n_layers],
+          f"moe_ep_at_scale: all_to_all_single {spy.seen}, counted "
+          f"{per_layer} bytes a layer")
+    check(slots8.total() == 0 and gap8 <= MOE_EP_RTOL,
+          f"moe_ep_at_scale: at capacity factor {MOE_EP_NO_DROP} "
+          f"{slots8.total()} pairs dropped, logits {gap8} from the plain "
+          "MoE's")
+    check(drops_equal and 0 < drops.total() == drops.total_per_bin()
+          < out["drops"]["pairs_routed"],
+          f"moe_ep_at_scale: at capacity factor {MOE_EP_DROPS} {out['drops']}")
+    check(conv.launches()[0] == conv.launches()[1],
+          f"moe_ep_at_scale: paged_from_rows launched "
+          f"{conv.launches()[1]}, paged_from_contiguous "
+          f"{conv.launches()[0]}")
+    for what, t in (("rank", dec_ranked), ("no_group", dec_one)):
+        for d in t.launches():
+            expect_launches(d, per_step, f"moe_ep_at_scale {what}, a decode "
+                            "step")
+    cards = torch.cuda.device_count()
+    n_cards = min(cards, RANKS_MAX_CARDS)
+    n_cards = n_cards if n_cards in (2, 4) else (2 if cards >= 2 else 1)
+    if n_cards >= 2:
+        out["cross_card"] = _moe_ep_cross_cards(
+            n_cards, {"cfg": cfg, "logits8": lg8[:, -1].cpu(),
+                      "per_step": per_step})
+    else:
+        out["cross_card"] = ("not made: this machine has one card "
+                             "(NCCL takes one rank per card)")
+        print("moe_ep_at_scale: the cross-card run was not made (one card)",
+              file=sys.stderr)
+    emit(out)
+    # the group path: paged_from_rows and the decode steps
+    return {k: conv.launches()[1][k] + sum(d[k] for d in dec_ranked.launches())
+            for k in cuda_lib.launch_counts()}
+
+
+# the runs of one rank per card, by the flag that starts them
+RANK_RUNS = {"--serve-rank-worker": _serve_rank_run,
+             "--moe-ep-rank-worker": _moe_ep_rank_run}
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3880,6 +4322,7 @@ def main():
     serve.update({what: phase_serve_at_scale(dev, smi, what)
                   for what in SERVE_AT_SCALE})
     serve["serve_at_scale/ranks"] = phase_serve_ranks(dev, smi)
+    serve["moe_ep_at_scale"] = phase_moe_ep(dev, smi)
     # launches: each kernel's count on its path at the real size (LEAD's for
     # K1-K3, CHOCO's wire for K4-K6), each path run with the counts at 0
     at_scale = {"quantize_encode": baselines["pinf_2bit"],
@@ -3907,7 +4350,7 @@ def main():
         if k in hot_path:
             r["hot_path_512"] = hot_path[k]
     emit({"phase": "script", "seconds": time.perf_counter() - start,
-          "nvidia_smi": smi})
+          "phase_seconds": PHASE_SECONDS, "nvidia_smi": smi})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -3920,7 +4363,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-worker"]:
         sys.exit(rank_worker(int(sys.argv[2]), int(sys.argv[3]),
                              sys.argv[4], sys.argv[5]))
-    if sys.argv[1:2] == ["--serve-rank-worker"]:
-        sys.exit(serve_rank_worker(int(sys.argv[2]), int(sys.argv[3]),
-                                   sys.argv[4]))
+    if sys.argv[1:2] and sys.argv[1] in RANK_RUNS:
+        sys.exit(card_rank_worker(sys.argv[1], int(sys.argv[2]),
+                                  int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

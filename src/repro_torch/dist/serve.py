@@ -41,6 +41,17 @@ equals the one-process pool, and a page that a lane of one rank flushes is
 read by a lane of another from the next step on.  ``paged_from_rows``
 builds that cache from the rank's rows of a prefill.  In one process (no
 process group) nothing is gathered: fn is the one-process path.
+
+MoE.  The reference's fns are one GSPMD program, so a batch split over
+"data" does not change what its MoE layers compute: each routes the whole
+batch, its capacity counted over every token.  So with the rows split,
+every fn hands the model the data group (``models/moe_ep.MoEGroups``):
+each plain MoE layer all-gathers its input over it, routes the whole
+batch and keeps the rank's rows.  With ``cfg.moe_ep_axis`` ("data"),
+make_prefill's fn runs the expert-parallel dispatch instead
+(models/moe_ep.py): the data group is its ep group when the rows are
+split (each rank then runs E / data of the experts), the "model" group
+its tp group; decode keeps the plain MoE, as the reference's does.
 """
 from __future__ import annotations
 
@@ -54,6 +65,7 @@ from repro_torch.dist.sharding import (BatchRows, ShardingProfile,
 from repro_torch.launch.mesh import all_gather_bytes
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import KVCache
+from repro_torch.models.moe_ep import MoEGroups
 from repro_torch.serve.paged_cache import (PagedKVCache, _POOL_FIELDS,
                                            _with_spare, init_paged_cache,
                                            paged_from_contiguous)
@@ -138,6 +150,23 @@ def _data_group(mesh):
     return mesh.subgroup(mesh.partition(("data",)))
 
 
+def _moe_groups(cfg, mesh, rows: BatchRows, expert_parallel=False):
+    """The MoE layers' groups for a make_* function's fn (module
+    docstring); None for a dense model or in one process.  Created
+    collectively."""
+    if not cfg.n_experts or not dist.is_initialized():
+        return None
+    data = _data_group(mesh) if rows.split else None
+    if not (expert_parallel and cfg.moe_ep_axis):
+        return MoEGroups(rows=data)
+    if cfg.moe_ep_axis != "data":
+        raise ValueError(f"{cfg.name}: moe_ep_axis={cfg.moe_ep_axis!r}; "
+                         "serving splits the batch over 'data' only")
+    tp = (mesh.subgroup(mesh.partition(("model",)))
+          if "model" in mesh.dims else None)
+    return MoEGroups(rows=data, ep=data, tp=tp)
+
+
 def make_decode(cfg, mesh, prof: ShardingProfile, shape):
     """Single-token decode step over a prefilled contiguous cache.
 
@@ -151,9 +180,10 @@ def make_decode(cfg, mesh, prof: ShardingProfile, shape):
     shardings = {"params": params_sh,
                  "token": serve_batch_spec(mesh, 2, B),
                  "cache": _batched(mesh, cache_sds, B)}
+    groups = _moe_groups(cfg, mesh, shardings["token"])
 
     def fn(params, token, cache):
-        return tfm.decode_step(params, cfg, token, cache)
+        return tfm.decode_step(params, cfg, token, cache, moe_groups=groups)
 
     return fn, sds, shardings, cfg
 
@@ -178,24 +208,28 @@ def make_paged_decode(cfg, mesh, prof: ShardingProfile, shape, *,
                  "token": serve_batch_spec(mesh, 2, B),
                  "cache": _batched(mesh, cache_sds, B)}
     group = _data_group(mesh) if shardings["cache"]["pos"].split else None
+    groups = _moe_groups(cfg, mesh, shardings["token"])
 
     def fn(params, token, cache):
         for c in cache["layers"]:
             c.group = group
-        return tfm.decode_step(params, cfg, token, cache)
+        return tfm.decode_step(params, cfg, token, cache, moe_groups=groups)
 
     return fn, sds, shardings, cfg
 
 
 def make_prefill(cfg, mesh, prof: ShardingProfile, shape):
     """Full-prompt prefill: (last-token logits, populated contiguous cache)
-    of the rank's rows of tokens (and of memory, for vlm and audio)."""
+    of the rank's rows of tokens (and of memory, for vlm and audio); an
+    MoE routes the whole batch, or dispatches over the ep and tp groups
+    with ``cfg.moe_ep_axis`` (module docstring)."""
     B, S = shape.global_batch, shape.seq_len
     params_sds, params_sh = _params(cfg, mesh)
     sds: Dict[str, Any] = {"params": params_sds,
                            "tokens": _meta((B, S), torch.int64)}
     shardings: Dict[str, Any] = {"params": params_sh,
                                  "tokens": serve_batch_spec(mesh, 2, B)}
+    groups = _moe_groups(cfg, mesh, shardings["tokens"], expert_parallel=True)
     if cfg.family in ("vlm", "audio"):
         M = cfg.vis_tokens if cfg.family == "vlm" else cfg.n_audio_frames
         sds["memory"] = _meta((B, M, cfg.d_model), torch.float32)
@@ -203,10 +237,11 @@ def make_prefill(cfg, mesh, prof: ShardingProfile, shape):
 
         def fn(params, tokens, memory):
             return tfm.prefill(params, cfg, tokens, memory=memory,
-                               cache_len=S)
+                               cache_len=S, moe_groups=groups)
     else:
         def fn(params, tokens):
-            return tfm.prefill(params, cfg, tokens, cache_len=S)
+            return tfm.prefill(params, cfg, tokens, cache_len=S,
+                               moe_groups=groups)
 
     return fn, sds, shardings, cfg
 

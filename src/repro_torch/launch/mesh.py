@@ -146,6 +146,38 @@ def all_gather_bytes(t, group):
     return out.reshape(-1, buf.numel())
 
 
+class CollectiveSpy:
+    """Calls and bytes handed to each collective of ``torch.distributed``
+    inside the with block: ``seen`` = {name: [calls, bytes]}, the
+    all-gathers under one name.  For tests and measurement scripts."""
+
+    NAMES = {"all_to_all_single": "all_to_all_single",
+             "all_reduce": "all_reduce", "all_gather_single": "all_gather",
+             "all_gather_into_tensor": "all_gather"}
+
+    def __enter__(self):
+        self.seen, self._orig = {}, {}
+        for name, key in self.NAMES.items():
+            orig = getattr(dist, name, None)
+            if orig is None:
+                continue
+            self._orig[name] = orig
+
+            def call(*a, _orig=orig, _key=key, **kw):
+                inp = a[0] if _key == "all_reduce" else a[1]
+                seen = self.seen.setdefault(_key, [0, 0])
+                seen[0] += 1
+                seen[1] += inp.numel() * inp.element_size()
+                return _orig(*a, **kw)
+
+            setattr(dist, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._orig.items():
+            setattr(dist, name, orig)
+
+
 def _row_major(sizes):
     if not sizes:
         yield ()

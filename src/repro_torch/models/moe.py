@@ -12,8 +12,8 @@ The dispatch never forms the (T, E, C) one-hot tensor:
   4. the batched expert SwiGLU on the buffer, (E, C, d) x (E, d, f) as
      ``torch.bmm`` (plain products: the reference has no Pallas kernel
      here either);
-  5. the expert outputs gathered back and combined (``index_add``) with
-     the kept gate weights.
+  5. the expert outputs gathered back and combined with the kept gate
+     weights (``combine``: a fold over each token's k choices in order).
 
 The Switch load-balancing loss is returned beside the output; the
 transformer block discards it, as the reference's does.
@@ -43,6 +43,20 @@ def moe_init(gen, d_model: int, d_ff: int, n_experts: int, device):
     }
 
 
+def combine(weighted: torch.Tensor, T: int, k: int) -> torch.Tensor:
+    """(T * k, d) weighted expert outputs, token-major -> (T, d): each
+    token's k rows added in choice order.  That is the order of a
+    sequential scatter-add over the tokens (the reference's, and
+    ``index_add`` on the CPU, bit for bit up to the sign of a zero), and,
+    unlike ``index_add``'s atomics on the card, the same order on every
+    run.  ``unbind`` keeps the backward to one stack of the k gradients."""
+    first, *rest = weighted.reshape(T, k, -1).unbind(1)
+    out = first
+    for row in rest:
+        out = out + row
+    return out
+
+
 def capacity(n_tokens: int, top_k: int, n_experts: int,
              capacity_factor: float) -> int:
     """Slots per expert: max(1, int(capacity_factor * T * top_k / E))."""
@@ -61,6 +75,14 @@ def slots(expert_ids: torch.Tensor, n_experts: int, C: int):
     return slot_id, slot_id < C
 
 
+def top_k_of(probs: torch.Tensor, k: int):
+    """The k largest probabilities of each row and their experts, as
+    ``jax.lax.top_k``: a stable descending sort, so ties keep the lower
+    index first."""
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :k], ids[:, :k]
+
+
 def route(p, xt: torch.Tensor, top_k: int, capacity_factor: float):
     """Routing of xt (T, d): (probs (T, E) f32, gates (T, k) f32, expert ids
     (T, k) int64, slot ids (T * k,) int64, keep (T * k,) bool, C)."""
@@ -69,10 +91,7 @@ def route(p, xt: torch.Tensor, top_k: int, capacity_factor: float):
     C = capacity(T, top_k, E, capacity_factor)
     logits = xt.to(torch.float32) @ p["router"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
-    # a stable descending sort: ties keep the lower index first
-    gate_vals, expert_ids = torch.sort(probs, dim=-1, descending=True,
-                                       stable=True)
-    gate_vals, expert_ids = gate_vals[:, :top_k], expert_ids[:, :top_k]
+    gate_vals, expert_ids = top_k_of(probs, top_k)
     gate_vals = gate_vals / torch.clamp_min(
         gate_vals.sum(-1, keepdim=True), 1e-9)
     slot_id, keep = slots(expert_ids, E, C)
@@ -124,8 +143,7 @@ def moe_apply(p, x: torch.Tensor, *, top_k: int,
     # gather-combine
     gathered = out_buf[flat_slot]                                  # (T*k, d)
     w = (gate_vals.reshape(T * top_k) * keep).to(x.dtype)
-    combined = torch.zeros((T, d), dtype=x.dtype, device=x.device) \
-        .index_add(0, tok_idx, gathered * w[:, None])
+    combined = combine(gathered * w[:, None], T, top_k)
 
     # Switch-style load-balance aux loss
     frac_tokens = torch.mean(

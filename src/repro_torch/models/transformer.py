@@ -39,15 +39,22 @@ Entry points:
     logits_fn(params, cfg, hidden)
     loss_fn(params, cfg, batch, chunk=512) -> (loss, metrics)
     init_cache(cfg, batch, cache_len, dtype, device)
-    prefill(params, cfg, tokens, memory=None, cache_len) -> (logits, cache)
-    decode_step(params, cfg, token, cache) -> (logits, cache)
+    prefill(params, cfg, tokens, memory=None, cache_len, moe_groups=None)
+        -> (logits, cache)
+    decode_step(params, cfg, token, cache, moe_groups=None)
+        -> (logits, cache)
     prefill_chunk(params, cfg, tokens, cache, slot, start, valid_len)
         -> (last-valid-token logits, cache)   [paged serving path]
 
-The serving caches are updated in place (a step owns its cache).  Not
-ported yet, raising NotImplementedError (ROADMAP.md): the expert-parallel
-MoE (``moe_ep_axis``: models/moe_ep.py's all-to-all, with the multi-card
-trainer).
+The serving caches are updated in place (a step owns its cache).  MoE
+across ranks (models/moe_ep.py): ``moe_groups`` (a ``MoEGroups``, None in
+one process) names the process groups an MoE layer runs over.  With
+``cfg.moe_ep_axis`` set, the full-sequence paths (``forward``,
+``prefill``) take the expert-parallel all-to-all dispatch over its ep and
+tp groups, as the reference's block does; decode and ``prefill_chunk``
+keep the plain MoE, as the reference's do.  The plain MoE routes the
+whole batch when its rows are split over the ``rows`` group.  The trainer
+does not take the expert-parallel dispatch (``check_supported``).
 """
 from __future__ import annotations
 
@@ -60,6 +67,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import moe_ep
 from repro_torch.models import recurrent as rec
 from repro_torch.models.initializers import dense, normal, ones, zeros
 from repro_torch.utils.tree import tree_map
@@ -70,13 +78,16 @@ _ATTN_BLOCKS = ("attn", "local", "global")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError where `cfg` needs what the port does not
-    model yet: the expert-parallel MoE dispatch (``moe_ep_axis``)."""
+    """Raise NotImplementedError where the trainer would need what the
+    port does not model yet: the expert-parallel MoE dispatch
+    (``moe_ep_axis``; models/moe_ep.py), which the reference documents as
+    its serving path and the port runs in ``forward`` and ``prefill``, but
+    not in the decentralized trainer."""
     if cfg.moe_ep_axis:
         raise NotImplementedError(
             f"{cfg.name}: the expert-parallel MoE (moe_ep_axis="
-            f"{cfg.moe_ep_axis!r}, models/moe_ep.py's all-to-all) comes with "
-            "the multi-card trainer (see ROADMAP.md, queue 1)")
+            f"{cfg.moe_ep_axis!r}, models/moe_ep.py's all-to-all) serves; "
+            "the trainer does not take it yet (see ROADMAP.md, queue 1)")
 
 
 # -- init ------------------------------------------------------------------------
@@ -250,7 +261,27 @@ def _self_attn_full(cfg, p, x, positions, block_type):
     return o.reshape(B, S, -1) @ ap["wo"].to(x.dtype), (k, v)
 
 
-def _block_apply(cfg, p, x, positions, block_type, collect_cache=False):
+def _moe(cfg, p, h2, groups, capacity_factor, seq_chunk=0,
+         expert_parallel=False):
+    """The MoE layer's output on h2 (B, S, d); its aux loss is discarded,
+    as in the reference's block.  expert_parallel: the all-to-all dispatch
+    over groups.ep and groups.tp; else the plain dispatch, of the whole
+    batch when its rows are split over groups.rows."""
+    groups = groups or moe_ep.MoEGroups()
+    kw = dict(top_k=cfg.top_k, capacity_factor=capacity_factor,
+              seq_chunk=seq_chunk)
+    if expert_parallel:
+        mo, _ = moe_ep.moe_apply_ep(p, h2, ep_group=groups.ep,
+                                    tp_group=groups.tp, **kw)
+    elif groups.rows is not None:
+        mo, _ = moe_ep.moe_apply_rows(p, h2, groups.rows, **kw)
+    else:
+        mo, _ = moe_mod.moe_apply(p, h2, **kw)
+    return mo
+
+
+def _block_apply(cfg, p, x, positions, block_type, collect_cache=False,
+                 moe_groups=None):
     """Full-sequence application of one block -> (x, cache entry): the
     attention block's (k, v) or a recurrent block's final state when
     `collect_cache` (prefill), else None."""
@@ -261,10 +292,8 @@ def _block_apply(cfg, p, x, positions, block_type, collect_cache=False):
         x = x + o
         h2 = _rms(x, p["ln2"])
         if cfg.n_experts:
-            # the aux loss is discarded, as in the reference's block
-            mo, _aux = moe_mod.moe_apply(p["moe"], h2, top_k=cfg.top_k,
-                                         capacity_factor=cfg.capacity_factor,
-                                         seq_chunk=cfg.moe_seq_chunk)
+            mo = _moe(cfg, p["moe"], h2, moe_groups, cfg.capacity_factor,
+                      cfg.moe_seq_chunk, expert_parallel=bool(cfg.moe_ep_axis))
         else:
             mo = _mlp_apply(cfg, p["mlp"], h2)
         return x + mo, (kv if collect_cache else None)
@@ -399,7 +428,6 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     cross-attention; the sums are the same).  An audio model encodes the
     frames first and cross-attends to them after every decoder layer; a
     vlm cross-attends to the memory after every cross_attn_every-th."""
-    check_supported(cfg)
     S = tokens.shape[1]
     # the embedding rows of the tokens (F.embedding: its backward on the
     # card needs no host read for a few thousand tokens)
@@ -498,7 +526,6 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     KVCache, or a recurrent block's state), "pos": 0-d int64} plus the
     vlm's "cross_mem" and the audio model's "enc_mem" (k, v) slots, on
     `device` ("cuda" when None)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     out = {"layers": tuple(_layer_cache_template(cfg, t, batch, cache_len,
                                                  dtype, dev)
@@ -519,12 +546,12 @@ def _embed(params, cfg, tokens):
 
 
 def prefill(params, cfg: ModelConfig, tokens, memory=None, cache_len=None,
-            cache_dtype=torch.bfloat16):
+            cache_dtype=torch.bfloat16, moe_groups=None):
     """Process a prompt (B, S) -> (last-token logits (B, 1, V), the
     populated contiguous cache at cache_len (default S), on the tokens'
     device).  The reference's ``prefill_scan`` branch computes the same
-    numbers as its layer loop; here one loop serves both."""
-    check_supported(cfg)
+    numbers as its layer loop; here one loop serves both.  moe_groups:
+    the MoE layers' process groups (module docstring)."""
     B, S = tokens.shape
     cache_len = cache_len or S
     x = _embed(params, cfg, tokens)
@@ -536,7 +563,8 @@ def prefill(params, cfg: ModelConfig, tokens, memory=None, cache_len=None,
     layers, cross_mems, enc_mems = [], [], []
     cross_idx = 0
     for i, t, lp in _iter_layers(cfg, params):
-        x, entry = _block_apply(cfg, lp, x, positions, t, collect_cache=True)
+        x, entry = _block_apply(cfg, lp, x, positions, t, collect_cache=True,
+                                moe_groups=moe_groups)
         layers.append(_fill_cache(t, cache["layers"][i], entry, S))
         if cfg.encoder_layers:
             xp = _dec_cross_param(cfg, params, i)
@@ -581,14 +609,13 @@ def _fill_cache(t, template, entry, S):
     return entry                     # recurrent states pass through
 
 
-def _ffn(cfg, lp, x):
+def _ffn(cfg, lp, x, moe_groups=None):
     """The attention block's MLP or MoE on the residual x.  Serving routes
-    MoE tokens at capacity factor 4, as the reference's serving does."""
+    MoE tokens at capacity factor 4 through the plain dispatch, as the
+    reference's serving does."""
     h2 = _rms(x, lp["ln2"])
     if cfg.n_experts:
-        mo, _ = moe_mod.moe_apply(lp["moe"], h2, top_k=cfg.top_k,
-                                  capacity_factor=4.0)
-        return mo
+        return _moe(cfg, lp["moe"], h2, moe_groups, 4.0)
     return _mlp_apply(cfg, lp["mlp"], h2)
 
 
@@ -602,7 +629,6 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, cache, slot: int,
     position) lands in the exact tail.  slot, start and valid_len are host
     ints from the scheduler.  Returns (logits of the last valid token
     (1, 1, V), the cache, updated in place)."""
-    check_supported(cfg)
     C = tokens.shape[1]
     x = _embed(params, cfg, tokens)
     positions = torch.arange(start, start + C, device=tokens.device)[None]
@@ -625,14 +651,15 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, cache, slot: int,
     return logits_fn(params, cfg, h), cache
 
 
-def decode_step(params, cfg: ModelConfig, token, cache, memory=None):
+def decode_step(params, cfg: ModelConfig, token, cache, memory=None,
+                moe_groups=None):
     """token: (B, 1) integer; cache from init_cache / prefill (contiguous,
     a 0-d ``pos``) or serve/paged_cache.init_paged_cache (paged, ``pos``
     one position per sequence (B,): continuous batching; other keys such
     as ``active`` ride through).  Returns (logits (B, 1, V), the cache):
     the layers' caches are updated in place, the returned dict holds the
-    new states of the recurrent layers and ``pos`` + 1."""
-    check_supported(cfg)
+    new states of the recurrent layers and ``pos`` + 1.  moe_groups: the
+    MoE layers' process groups (module docstring)."""
     B = token.shape[0]
     pos = cache["pos"]
     x = _embed(params, cfg, token)
@@ -649,7 +676,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, memory=None):
             c = attn.update_cache(c, k, v, pos)
             o = attn.decode_attention(q, c, pos)
             x = x + o.reshape(B, 1, -1) @ lp["attn"]["wo"].to(x.dtype)
-            x = x + _ffn(cfg, lp, x)
+            x = x + _ffn(cfg, lp, x, moe_groups)
         elif t == "mlstm":
             o, c = rec.mlstm_decode(lp["mlstm"], h, c, cfg.n_heads)
             x = x + o

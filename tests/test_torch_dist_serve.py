@@ -20,6 +20,14 @@ one-process port, on the CPU.
   step 3.  Each rank's logits and every rank's pool after every step equal
   the one-process port's bit for bit; without the gather lane 0 reads a
   stale page once it is flushed;
+* MoE with the rows split (the same worlds): reduced granite-moe-1b-a400m
+  (4 experts, top-2, capacity factor 1.25), B = 4, a 20-token prompt
+  whose routing overflows an expert, make_prefill, paged_from_rows and 2
+  greedy steps of make_paged_decode's fn.  Each rank's last-token logits,
+  its rows of the contiguous cache and its decode logits equal the
+  one-process port's bit for bit: every MoE layer routes the whole batch,
+  as the reference's GSPMD program does, where routing each rank's rows
+  alone gives other logits;
 * the one-process port's prefill and paged decode against the reference's
   make_prefill / make_paged_decode fns on the same weights, each step from
   the reference's cache: logits within 1e-5 of the largest |logit| (the
@@ -45,6 +53,7 @@ B, S, CACHE_LEN, STEPS, PAGE, KV_BITS = 4, 28, 64, 8, 16, 4
 FLUSH = 3                        # the step at which position 31 ends page 1
 WORLDS = {"2x1": (2, 1), "2x2": (2, 2)}
 RTOL, CODE_FRAC = 1e-5, 1e-5
+MOE_S, MOE_STEPS = 20, 2
 
 
 def _config():
@@ -59,6 +68,50 @@ def _inputs(cfg):
     tokens = torch.randint(0, cfg.vocab, (B, S),
                            generator=torch.Generator().manual_seed(1))
     return params, tokens
+
+
+def _moe_config():
+    from repro_torch.configs.registry import get_config
+    return get_config("granite-moe-1b-a400m").reduced()
+
+
+def _moe_inputs(cfg):
+    """The reduced MoE's weights (seed 0) and its (B, MOE_S) prompt."""
+    from repro_torch.models import transformer as tfm
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (B, MOE_S),
+                           generator=torch.Generator().manual_seed(2))
+    return params, tokens
+
+
+def _kv(cache):
+    """Every layer's contiguous (k, v), copied."""
+    return [(c.k.clone(), c.v.clone()) for c in cache["layers"]]
+
+
+def moe_run(prefill, decode, paged_from, params, tokens):
+    """prefill, then MOE_STEPS greedy paged decode steps: the logits of
+    each and the prefill's contiguous cache."""
+    with torch.no_grad():
+        lg, cache = prefill(params, tokens)
+        kv = _kv(cache)
+        paged = paged_from(cache)
+        logits = [lg]
+        for _ in range(MOE_STEPS):
+            lg, paged = decode(params, lg[:, -1].argmax(-1)[:, None], paged)
+            logits.append(lg)
+    return logits, kv
+
+
+def moe_one_process(cfg, params, tokens):
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.paged_cache import paged_from_contiguous
+
+    return moe_run(
+        lambda p, t: tfm.prefill(p, cfg, t, cache_len=CACHE_LEN),
+        lambda p, t, c: tfm.decode_step(p, cfg, t, c),
+        lambda c: paged_from_contiguous(c, cfg, page=PAGE, kv_bits=KV_BITS),
+        params, tokens)
 
 
 def _pools(cache):
@@ -180,13 +233,27 @@ def rank_main(out_dir, world, rank):
                     pools.append(_pools(paged))
                     tok = lg[:, -1].argmax(-1)[:, None]
             runs[gather] = (logits, pools, spy.steps)
+        # MoE: the rank's rows through make_prefill and make_paged_decode
+        mcfg = _moe_config()
+        mparams, mtokens = _moe_inputs(mcfg)
+        mprof = make_profile(mcfg, mesh.axis_names)
+        mpre, _, mpre_sh, _ = dserve.make_prefill(
+            mcfg, mesh, mprof, InputShape("p", CACHE_LEN, B, "prefill"))
+        mdec, _, _, _ = dserve.make_paged_decode(
+            mcfg, mesh, mprof, InputShape("d", CACHE_LEN, B, "decode"),
+            page=PAGE, kv_bits=KV_BITS)
+        moe = moe_run(
+            mpre, mdec,
+            lambda c: dserve.paged_from_rows(c, mcfg, mesh, B, page=PAGE,
+                                             kv_bits=KV_BITS),
+            mparams, dserve.place(mtokens, mpre_sh["tokens"]))
     finally:
         dist.destroy_process_group()
     logits, pools, steps = runs[True]
     torch.save({"first": first, "stop": pre_sh["tokens"].stop,
                 "coords": mesh.coords(), "logits": logits, "pools": pools,
                 "gathered": steps, "split": dec_sh["cache"]["pos"].split,
-                "logits_no_gather": runs[False][0]},
+                "logits_no_gather": runs[False][0], "moe": moe},
                os.path.join(out_dir, f"{world}.{rank}.pt"))
 
 
@@ -433,6 +500,35 @@ def test_a_page_flushed_on_one_rank_is_read_on_another(worlds, one_process,
     assert all(torch.equal(stale[i][0], logits[i][0])
                for i in range(FLUSH + 1))
     assert not torch.equal(stale[FLUSH + 1][0], logits[FLUSH + 1][0])
+
+
+@pytest.mark.parametrize("world", list(WORLDS))
+def test_moe_with_split_rows_routes_the_whole_batch(worlds, world):
+    """Reduced granite-moe with the batch's rows split over "data": each
+    rank's prefill logits, its rows of every layer's contiguous k and v,
+    and its logits in both decode steps equal the one-process port's bit
+    for bit.  The prompt makes the whole-batch routing differ from each
+    rank's rows routed alone (an expert overflows at capacity factor 1.25):
+    the one-process prefill of a rank's rows alone gives other logits."""
+    from repro_torch.models import transformer as tfm
+
+    cfg = _moe_config()
+    params, tokens = _moe_inputs(cfg)
+    logits, kv = moe_one_process(cfg, params, tokens)
+    alone_differs = False
+    for res in worlds(world):
+        lo, hi = res["first"], res["stop"]
+        mine, mine_kv = res["moe"]
+        assert len(mine) == len(logits) == MOE_STEPS + 1
+        for i, (a, b) in enumerate(zip(mine, logits)):
+            assert torch.equal(a, b[lo:hi]), (world, res["coords"], i)
+        for (k, v), (wk, wv) in zip(mine_kv, kv):
+            assert torch.equal(k, wk[lo:hi]) and torch.equal(v, wv[lo:hi])
+        with torch.no_grad():
+            alone, _ = tfm.prefill(params, cfg, tokens[lo:hi],
+                                   cache_len=CACHE_LEN)
+        alone_differs |= not torch.equal(alone, logits[0][lo:hi])
+    assert alone_differs
 
 
 def test_one_process_matches_reference_decode():

@@ -198,11 +198,16 @@ def test_moe_block_capacity_is_per_call():
 
 
 def test_expert_parallel_config_raises():
-    """A config with moe_ep_axis set (models/moe_ep.py's all-to-all) raises
-    NotImplementedError naming ROADMAP.md: it comes with the multi-card
-    trainer.  Its parameters are the plain MoE's, so init and counting
-    still work."""
+    """A config with moe_ep_axis set (models/moe_ep.py's all-to-all) is a
+    serving path: the trainer raises NotImplementedError naming
+    ROADMAP.md, and forward runs it.  Its parameters are the plain MoE's.
+    In one process forward equals the reference's (its moe_apply_ep on a
+    (1, 1) mesh) on the same weights within 1e-5 relative."""
+    from repro.compat import AxisType, make_mesh, set_mesh
+    from repro.configs.registry import get_config as jax_get_config
+    from repro.models import transformer as jax_tfm
     from repro_torch.dist.trainer import DistConfig, make_train_step
+    from repro_torch.utils.tree import tree_map
 
     cfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(),
                               moe_ep_axis="data")
@@ -213,5 +218,16 @@ def test_expert_parallel_config_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_train_step(cfg, 4, DistConfig(), "cpu")
     params = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfm.forward(params, cfg, torch.zeros((1, 8), dtype=torch.int64))
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab, (2, 8))
+    with torch.no_grad():
+        hidden = tfm.forward(params, cfg, torch.tensor(tokens))
+    jcfg = dataclasses.replace(
+        jax_get_config("granite-moe-1b-a400m").reduced(), moe_ep_axis="data")
+    mesh = make_mesh((1, 1), ("data", "model"),
+                     axis_types=(AxisType.Auto,) * 2)
+    with set_mesh(mesh):
+        want = jax.jit(lambda pp, tt: jax_tfm.forward(pp, jcfg, tt))(
+            tree_map(lambda x: x.numpy(), params),
+            jnp.asarray(tokens, jnp.int32))
+    assert hidden.shape == tuple(want.shape)
+    assert _rel(hidden.numpy(), want) < OUT_RTOL
